@@ -5,14 +5,22 @@
 
 Phases, each printing one JSON line:
   1. device   torch/CUDA versions and the card (nvidia-smi name, power limit)
-  2. build    nvcc build of csrc/raycast.cu for sm_90a (seconds)
-  3. kernel   the ray-cast kernel against its plain PyTorch version on
-              walker scenes (E = 16 at the training shape, 64, 768 envs at
-              84×84, and one 448×448 frame): seg mismatches ≤ 5 pixels per
-              frame; on seg-agreeing pixels ≤ 10 pixels off by > 2 levels
-              and none by > 32. CUDA-event times per call over 20
-              back-to-back calls (the kernel's also from the profiler:
-              its duration on the device) beside the kernel's bound
+  2. build    nvcc build of csrc/raycast.cu for sm_90a (seconds), and
+              each instantiation's registers per thread and shared memory
+  3. kernel   the ray-cast kernel on walker scenes (E = 16 at the training
+              shape, 64, 768 envs at 84×84, and one 448×448 frame), both
+              instantiations: culled (the render path's) and unculled. They
+              must agree bit for bit in rgb, seg and depth, and the culled
+              one must match its plain PyTorch version: seg mismatches ≤ 5
+              pixels per frame; on seg-agreeing pixels ≤ 10 pixels off by
+              > 2 levels and none by > 32. CUDA-event times per call over 20
+              back-to-back calls and the profiler's device time of each
+              instantiation (in turns: culled, unculled, unculled, culled)
+              beside two bounds: the operations these inputs need
+              (`raycast.ops_needed`) or the bytes, and the unculled count.
+              Then a camera inside a bounding sphere (bit identity and the
+              plain version again), and a sweep of the tile rows a warp
+              traces (device time; each bit-identical to the default)
   4. env      VectorEnv walker-walk (train mode, 16 envs) for a few random
               steps: obs (16, 9, 84, 84) uint8, finite rewards, one kernel
               launch per rendered batch; ms per env step
@@ -134,44 +142,117 @@ def compare_frames(k, r):
                 "max_level_diff": max_lvl, "max_abs_err": max_abs}
 
 
+SHAPES = ((16, 84), (64, 84), (768, 84), (1, 448))
+
+
+def same_bits(a, b):
+    """Two kernel outputs (rgb, seg, depth) agree bit for bit."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def batch_params(raycast, base, E):
+    """Packed params of E scenes cycled from the base batch."""
+    Rg, pg, app, cpos, cR, _ = base
+    rep = -(-E // Rg.shape[0])
+    sl = lambda t: t.repeat((rep,) + (1,) * (t.dim() - 1))[:E].contiguous()
+    app_e = type(app)(**{k: sl(v) for k, v in vars(app).items()})
+    return raycast._pack_params(sl(Rg), sl(pg), app_e, sl(cpos), sl(cR))
+
+
+def inside_params(raycast, m, params):
+    """The same scenes with the camera 0.2 m off the torso's axis: outside
+    the capsule (r 0.07), inside its bounding sphere (r + hl = 0.37)."""
+    off = raycast._offsets(len(m.geoms))
+    i = next(k for k, g in enumerate(m.geoms) if g.name == "torso")
+    q = params.clone()
+    Rb, pb = off["Rg"] + 9 * i, off["pg"] + 3 * i
+    for c in range(3):  # camera = p0 + 0.2 ex
+        q[:, off["cam_pos"] + c] = q[:, pb + c] + 0.2 * q[:, Rb + 3 * c]
+    return q
+
+
 def kernel_phase(raycast):
-    """Kernel vs plain version, times and bounds at several batch sizes."""
+    """Both instantiations against each other and the plain version, times
+    and bounds at several batch sizes; the inside-a-sphere check; the rows
+    sweep."""
     import torch
 
     rows = []
     ok_all = True
     m, base = walker_scenes(64, seed=0)
-    Rg, pg, app, cpos, cR, fovy = base
+    fovy = base[5]
     fpr = raycast.flops_per_ray(m)
     pdim = raycast._offsets(len(m.geoms))["pdim"]
-    for E, size in ((16, 84), (64, 84), (768, 84), (1, 448)):
-        rep = -(-E // 64)
-        sl = lambda t: t.repeat((rep,) + (1,) * (t.dim() - 1))[:E].contiguous()
-        app_e = type(app)(**{k: sl(v) for k, v in vars(app).items()})
-        params = raycast._pack_params(sl(Rg), sl(pg), app_e, sl(cpos), sl(cR))
-        k = raycast._launch(m, params, fovy, size, size, True)
+    for E, size in SHAPES:
+        params = batch_params(raycast, base, E)
+        run = lambda cull, p=params: raycast._launch(
+            m, p, fovy, size, size, True, cull=cull)
+        k, ku = run(True), run(False)
         r = raycast._render_packed_ref(m, params, fovy, size, size)
         torch.cuda.synchronize()
+        identical = same_bits(k, ku)
         ok, cmp = compare_frames(k, r)
-        ok_all &= ok
-        launch = lambda: raycast._launch(m, params, fovy, size, size, True)
-        ms = cuda_ms(launch)
-        # the kernel's own duration on the device (profiler, one kernel
-        # per call)
-        _, device_ms, _ = profiled(launch, 20)
+        ok_all &= ok and identical
+        ms = cuda_ms(lambda: run(True))
+        ms_u = cuda_ms(lambda: run(False))
+        # the kernels' own durations on the device (profiler, one kernel
+        # per call), in turns
+        dev = {True: [], False: []}
+        for cull in (True, False, False, True):
+            dev[cull].append(profiled(lambda: run(cull), 20)[1])
+        device_ms = statistics.mean(dev[True])
+        device_ms_u = statistics.mean(dev[False])
         plain_ms = cuda_ms(lambda: raycast._render_packed_ref(
             m, params, fovy, size, size), reps=20 if E <= 64 else 5)
         P = size * size
-        flops = E * P * fpr
-        nbytes = E * pdim * 4 + E * P * (12 + 4 + 4)
-        bound_s = max(flops / PEAK_FP32, nbytes / PEAK_BYTES)
-        rows.append({"E": E, "size": size, "ok": ok, **cmp, "kernel_ms": ms,
-                     "kernel_device_ms": device_ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-                     "bound_by": ("operations" if flops / PEAK_FP32
-                                  >= nbytes / PEAK_BYTES else "bytes"),
-                     "flops_per_ray": fpr})
-    return ok_all, rows
+        ops = raycast.ops_needed(m, params, fovy, size, size)
+        t_bytes = (E * pdim * 4 + E * P * (12 + 4 + 4)) / PEAK_BYTES
+        t_ops, t_ops_u = ops / PEAK_FP32, E * P * fpr / PEAK_FP32
+        rows.append({
+            "E": E, "size": size, "ok": ok, "identical": identical, **cmp,
+            "kernel_ms": ms, "kernel_ms_unculled": ms_u,
+            "kernel_device_ms": device_ms,
+            "kernel_device_ms_unculled": device_ms_u,
+            "device_ms_runs": dev[True], "device_ms_unculled_runs": dev[False],
+            "plain_ms": plain_ms,
+            "ops_per_ray_needed": ops / (E * P), "flops_per_ray_unculled": fpr,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_unculled_ms": max(t_ops_u, t_bytes) * 1e3,
+            "bound_unculled_by": ("operations" if t_ops_u >= t_bytes
+                                  else "bytes"),
+            "share_of_bound": max(t_ops, t_bytes) * 1e3 / device_ms,
+            "share_of_bound_unculled": (
+                max(t_ops_u, t_bytes) * 1e3 / device_ms_u)})
+
+    # camera inside a capsule's bounding sphere: no ray is culled there
+    params = inside_params(raycast, m, batch_params(raycast, base, 16))
+    k = raycast._launch(m, params, fovy, 84, 84, True, cull=True)
+    ku = raycast._launch(m, params, fovy, 84, 84, True, cull=False)
+    r = raycast._render_packed_ref(m, params, fovy, 84, 84)
+    torch.cuda.synchronize()
+    ok_in, cmp_in = compare_frames(k, r)
+    inside = {"identical": same_bits(k, ku), "ok": ok_in, **cmp_in}
+    ok_all &= ok_in and inside["identical"]
+
+    # tile rows a warp traces (the kernel's own choice: 1 on small
+    # launches, 2 on large ones): device ms of the culled kernel, and bit
+    # identity with its own choice
+    sweep = []
+    for E, size in SHAPES:
+        params = batch_params(raycast, base, E)
+        ref = raycast._launch(m, params, fovy, size, size, True)
+        for n_rows in (1, 2, 3):
+            run = lambda: raycast._launch(m, params, fovy, size, size, True,
+                                          rows=n_rows)
+            same = same_bits(run(), ref)
+            ok_all &= same
+            sweep.append({"E": E, "size": size, "rows": n_rows,
+                          "identical": same,
+                          "device_ms": profiled(run, 20)[1]})
+    return ok_all, rows, inside, sweep
 
 
 def main():
@@ -204,11 +285,14 @@ def main():
     lib = raycast.build()
     raycast._lib()
     emit({"phase": "build", "seconds": time.time() - t0,
-          "library": os.path.relpath(lib, REPO)})
+          "library": os.path.relpath(lib, REPO),
+          "culled": raycast.kernel_attributes(True),
+          "unculled": raycast.kernel_attributes(False)})
 
-    # ---- 3. kernel vs plain version
-    ok_k, rows = kernel_phase(raycast)
+    # ---- 3. kernel: culled vs unculled vs plain version
+    ok_k, rows, inside, sweep = kernel_phase(raycast)
     emit({"phase": "kernel", "ok": ok_k, "card": smi, "rows": rows,
+          "camera_inside_sphere": inside, "rows_sweep": sweep,
           "library_ms": None,
           "library_note": "no single PyTorch call computes this function"})
     if not ok_k:
@@ -329,12 +413,17 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
+        "device_ms_unculled": main_row["kernel_device_ms_unculled"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "bound_unculled_ms": main_row["bound_unculled_ms"],
+        "share_of_bound": main_row["share_of_bound"],
         "library_ms": None, "shape": "E=16 x 3x84x84",
         "at": {f"E{r['E']}_{r['size']}px": {
-            k: r[k] for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
-                              "bound_ms")}
+            k: r[k] for k in ("kernel_ms", "kernel_device_ms",
+                              "kernel_device_ms_unculled", "plain_ms",
+                              "bound_ms", "bound_by", "bound_unculled_ms",
+                              "share_of_bound")}
             for r in rows},
     }]})
     print(smi, flush=True)

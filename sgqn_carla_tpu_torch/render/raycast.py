@@ -16,6 +16,10 @@ out.
   render_frames     env entry point with the contract of
                     `sgqn_carla_tpu/render/fast.py::render_scene_fast`,
                     batched: background composite, uint8 rgb, CHW.
+  ops_needed        the kernel's operation count for given inputs (its
+                    culling skips what no ray can hit), with the plain
+                    bounding test `ray_may_hit`; used for its bound and by
+                    the tests, never on the render path.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -51,20 +56,89 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # FP32 operations per ray, counted from csrc/raycast.cu (each +, −, ×, ÷,
-# sqrt, min/max, compare and select counts one): ray generation and
-# normalisation, the per-geom closest-hit test by type (plane includes
-# its checker shading), and the shading/sky epilogue. Used for the
-# kernel's operation bound.
-FLOPS_RAY = 40
-FLOPS_GEOM = {PLANE: 50, SPHERE: 30, CAPSULE: 120, CYLINDER: 120, BOX: 75,
-              ELLIPSOID: 95}
-FLOPS_SHADE = 25
+# sqrt, abs, floor, min/max, compare and select counts one): the camera
+# ray and its normalisation; one bounding-sphere test of a culled geom;
+# the exact closest-hit test by type, with its update of the running
+# winner; and the deferred shading of the dearest winner (a capsule wall's
+# normal, headlight, clamp). Used for the kernel's operation bound.
+FLOPS_RAY = 33
+FLOPS_CULL = 6
+FLOPS_GEOM = {PLANE: 40, SPHERE: 16, CAPSULE: 63, CYLINDER: 63, BOX: 64,
+              ELLIPSOID: 46}
+FLOPS_SHADE = 47
+# absolute slack of a bounding radius (m); csrc/raycast.cu adds a relative
+# one, 1e-5 of |centre - origin|², for the float error of the squared
+# distances the test compares
+CULL_SLACK = 1e-3
+_CULL_REL = 1e-5
 
 
 def flops_per_ray(model: Model) -> int:
-    """FP32 operations one ray costs for this model's visible geoms."""
+    """FP32 operations one ray costs for this model's visible geoms when
+    every geom is tested (the kernel without culling)."""
     return FLOPS_RAY + FLOPS_SHADE + sum(
         FLOPS_GEOM[g.gtype] for g in model.geoms if raster.visible(g))
+
+
+def bounding_radius(g) -> Optional[float]:
+    """Radius of a sphere about the geom's position that holds every point
+    the ray-caster can hit on it, plus CULL_SLACK; None for a geom the
+    kernel never culls. A cylinder is drawn as a capsule (raster.py
+    `_trace_geom`), so its extent is r + hl like a capsule's, not
+    √(r² + hl²). Planes span the screen; an ellipsoid's miss distance in
+    the reference is 1e9/|d_s|, a finite t that a skipped test would not
+    give, so neither is culled."""
+    s = [float(x) for x in g.size]
+    if g.gtype in (CAPSULE, CYLINDER):
+        rb = s[0] + s[1]
+    elif g.gtype == SPHERE:
+        rb = s[0]
+    elif g.gtype == BOX:
+        rb = math.sqrt(s[0] ** 2 + s[1] ** 2 + s[2] ** 2)
+    else:
+        return None
+    return rb + CULL_SLACK
+
+
+def ray_may_hit(o, d, centre, rb: float) -> torch.Tensor:
+    """The kernel's bounding test on tensors: rays (o, d) (unit d) may hit
+    a sphere of radius rb about `centre` iff d·(centre − o) ≥ √K, where
+    K = |centre − o|²(1 − 1e-5) − rb² (always when K ≤ 0: the origin is
+    inside)."""
+    oc = v3.sub(centre, o)
+    occ = v3.dot(oc, oc)
+    k = occ * (1.0 - _CULL_REL) - rb * rb
+    thr = torch.where(k > 0, torch.sqrt(torch.clamp(k, min=0.0)), -_INF)
+    return v3.dot(oc, d) >= thr
+
+
+def ops_needed(model: Model, params: torch.Tensor, fovy: float, H: int,
+               W: int) -> int:
+    """FP32 operations the culled kernel needs for these packed params:
+    per ray FLOPS_RAY + FLOPS_SHADE, every unculled geom's test, and for
+    each culled geom its bounding test plus, where this ray may hit it
+    (`ray_may_hit`, per ray, not per warp), its exact test."""
+    E = params.shape[0]
+    off = _offsets(len(model.geoms))
+    sc = lambda k: params[:, k:k + 1]
+    v = lambda k: (sc(k), sc(k + 1), sc(k + 2))
+    tan_half = float(np.tan(np.deg2rad(fovy) / 2))
+    d = raster.camera_rays([sc(off["cam_R"] + k) for k in range(9)],
+                           tan_half, H, W, params.device)
+    o = v(off["cam_pos"])
+    per_ray = FLOPS_RAY + FLOPS_SHADE
+    total = 0
+    for i, g in enumerate(model.geoms):
+        if not raster.visible(g):
+            continue
+        rb = bounding_radius(g)
+        if rb is None:
+            per_ray += FLOPS_GEOM[g.gtype]
+            continue
+        per_ray += FLOPS_CULL
+        may = ray_may_hit(o, d, v(off["pg"] + 3 * i), rb)
+        total += FLOPS_GEOM[g.gtype] * int(may.sum())
+    return total + E * H * W * per_ray
 
 
 # ------------------------------------------------------------- packing
@@ -97,10 +171,11 @@ _TABLES: dict = {}
 
 def geom_table(model: Model, device):
     """Static per-model geom table of the visible geoms, made once per
-    (model, device): ints (Gv, 4) {geom index, type, grid flag, 0} and
-    floats (Gv, 12) {s0, s1, s2, r², 1/r, hl, 2hl, (2hl)², r²(2hl)², e0,
-    e1, e2} — derived constants computed in double on the host and rounded
-    once, as the plain version's Python constants are."""
+    (model, device): ints (Gv, 4) {geom index, type, grid flag, cull flag}
+    and floats (Gv, 14) {s0, s1, s2, r², 1/r, hl, 2hl, (2hl)², r²(2hl)²,
+    e0, e1, e2, rb², 1/(2hl)²} — derived constants computed in double on
+    the host and rounded once, as the plain version's Python constants
+    are; rb is `bounding_radius` (rb² = 0 for a geom never culled)."""
     key = (id(model), str(device))
     got = _TABLES.get(key)
     if got is not None and got[0] is model:
@@ -117,13 +192,17 @@ def geom_table(model: Model, device):
         r, hl = s[0], s[1]
         baba = (2 * hl) ** 2
         e = [float(x) for x in np.asarray(g.size) + 1e-9]
+        rb = bounding_radius(g)
         ints.append([i, int(g.gtype),
-                     int(g.gtype == PLANE and g.material == "grid"), 0])
+                     int(g.gtype == PLANE and g.material == "grid"),
+                     int(rb is not None)])
         floats.append([s[0], s[1], s[2], r * r, 1.0 / r if r else 0.0, hl,
-                       2 * hl, baba, r * r * baba, e[0], e[1], e[2]])
+                       2 * hl, baba, r * r * baba, e[0], e[1], e[2],
+                       rb * rb if rb is not None else 0.0,
+                       1.0 / baba if baba else 0.0])
     ti = torch.as_tensor(np.asarray(ints, np.int32).reshape(-1, 4),
                          device=device)
-    tf = torch.as_tensor(np.asarray(floats, np.float32).reshape(-1, 12),
+    tf = torch.as_tensor(np.asarray(floats, np.float32).reshape(-1, 14),
                          device=device)
     _TABLES[key] = (model, (ti, tf))
     return ti, tf
@@ -215,14 +294,30 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.raycast_launch.restype = ctypes.c_int
+        lib.raycast_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.raycast_attributes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+def kernel_attributes(cull: bool = True) -> dict:
+    """The compiled kernel's resources (cudaFuncGetAttributes)."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().raycast_attributes(int(cull), ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError_t {err}")
+    return {"registers_per_thread": out[0], "static_smem_bytes": out[1],
+            "local_bytes_per_thread": out[2], "max_threads_per_block": out[3]}
+
+
 def _launch(model: Model, params: torch.Tensor, fovy: float, H: int, W: int,
-            with_depth: bool):
+            with_depth: bool, cull: bool = True, rows: int = 0):
+    """Launch the kernel on packed params. `cull=False` (the same kernel
+    without its bounding tests) and `rows` (tile rows a warp traces; 0 lets
+    the kernel choose from the launch's size) serve only the card's checks
+    and timings; the render path takes the defaults."""
     global launches
     if params.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {params.device}")
@@ -249,7 +344,7 @@ def _launch(model: Model, params: torch.Tensor, fovy: float, H: int, W: int,
             params.data_ptr(), E, pdim, G, gi.data_ptr(), gf.data_ptr(),
             gi.shape[0], H, W, tan_half * (W / H), tan_half, rgb.data_ptr(),
             seg.data_ptr(), depth.data_ptr() if depth is not None else None,
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(cull), int(rows), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"raycast kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -76,6 +76,57 @@ def test_kernel_matches_plain_version(E, size):
     assert {-1, 0}.issubset(segs) and len(segs) >= 4
 
 
+def _camera_inside_torso_sphere(m, params):
+    """The same scenes with the camera 0.2 m off the torso's axis: outside
+    the capsule (r 0.07), inside its bounding sphere (r + hl = 0.37), where
+    no ray of the torso is culled."""
+    off = raycast._offsets(len(m.geoms))
+    i = next(k for k, g in enumerate(m.geoms) if g.name == "torso")
+    q = params.clone()
+    Rb, pb = off["Rg"] + 9 * i, off["pg"] + 3 * i
+    for c in range(3):
+        q[:, off["cam_pos"] + c] = q[:, pb + c] + 0.2 * q[:, Rb + 3 * c]
+    return q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,size,inside", [(16, 84, False), (1, 448, False),
+                                           (16, 84, True)])
+def test_culling_changes_no_output_bit(E, size, inside):
+    """The culled and unculled instantiations agree bit for bit in rgb,
+    seg and depth, whatever the tile rows a warp traces; both stay within
+    the plain version's bounds."""
+    dev = _cuda()
+    m, args = _scenes(E, 7, dev)
+    params = raycast._pack_params(*args[1:6])
+    if inside:
+        params = _camera_inside_torso_sphere(m, params)
+    fovy = args[6]
+    k = raycast._launch(m, params, fovy, size, size, True)
+    for cull, rows in ((False, 0), (True, 1), (True, 2), (True, 3)):
+        other = raycast._launch(m, params, fovy, size, size, True, cull=cull,
+                                rows=rows)
+        for a, b in zip(k, other):
+            assert torch.equal(a, b), (cull, rows)
+    _check(k, raycast._render_packed_ref(m, params, fovy, size, size), E)
+
+
+@pytest.mark.cuda
+def test_render_frames_launches_the_culled_kernel(monkeypatch):
+    dev = _cuda()
+    m, args = _scenes(2, 1, dev)
+    calls = []
+    launch = raycast._launch
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return launch(*a, **kw)
+
+    monkeypatch.setattr(raycast, "_launch", spy)
+    rgb, _, _ = raycast.render_frames(*args, 84, 84)
+    assert rgb.is_cuda and calls == [{}]
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_input():
     dev = _cuda()
