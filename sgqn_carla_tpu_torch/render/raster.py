@@ -117,16 +117,20 @@ def _isect_sphere(o, d, c, r):
 
 
 def _isect_capsule(o, d, pa, ba, baba, r):
-    """Ray vs capsule with axis segment pa → pa+ba (|ba|² = baba)."""
+    """Ray vs capsule with axis segment pa → pa+ba (|ba|² = baba).
+
+    The wall's discriminant b² − a·c (c = baba|oa|² − (ba·oa)² − r²baba)
+    is written as baba(r²a − (d·(ba × oa))²), the same value for unit d:
+    b² and a·c are each ~|oa|²/r² times larger than their difference, so
+    in f32 the textbook form loses ~10 bits on grazing rays."""
     oa = v3.sub(o, pa)
     bard = v3.dot(d, ba)
     baoa = v3.dot(oa, ba)
     rdoa = v3.dot(d, oa)
-    oaoa = v3.dot(oa, oa)
+    s = v3.dot(d, v3.cross(ba, oa))
     a = baba - bard * bard
     b = baba * rdoa - baoa * bard
-    c = baba * oaoa - baoa * baoa - r * r * baba
-    h = b * b - a * c
+    h = baba * (r * r * a - s * s)
     a_s = torch.where(a.abs() < 1e-9, 1e-9, a)
     t_cyl = (-b - torch.sqrt(torch.clamp(h, min=0.0))) / a_s
     y = baoa + t_cyl * bard

@@ -63,7 +63,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # normal, headlight, clamp). Used for the kernel's operation bound.
 FLOPS_RAY = 33
 FLOPS_CULL = 6
-FLOPS_GEOM = {PLANE: 40, SPHERE: 16, CAPSULE: 63, CYLINDER: 63, BOX: 64,
+FLOPS_GEOM = {PLANE: 40, SPHERE: 16, CAPSULE: 69, CYLINDER: 69, BOX: 64,
               ELLIPSOID: 46}
 FLOPS_SHADE = 47
 # absolute slack of a bounding radius (m); csrc/raycast.cu adds a relative
@@ -172,8 +172,8 @@ _TABLES: dict = {}
 def geom_table(model: Model, device):
     """Static per-model geom table of the visible geoms, made once per
     (model, device): ints (Gv, 4) {geom index, type, grid flag, cull flag}
-    and floats (Gv, 14) {s0, s1, s2, r², 1/r, hl, 2hl, (2hl)², r²(2hl)²,
-    e0, e1, e2, rb², 1/(2hl)²} — derived constants computed in double on
+    and floats (Gv, 13) {s0, s1, s2, r², 1/r, hl, 2hl, (2hl)², e0, e1, e2,
+    rb², 1/(2hl)²} — derived constants computed in double on
     the host and rounded once, as the plain version's Python constants
     are; rb is `bounding_radius` (rb² = 0 for a geom never culled)."""
     key = (id(model), str(device))
@@ -197,12 +197,12 @@ def geom_table(model: Model, device):
                      int(g.gtype == PLANE and g.material == "grid"),
                      int(rb is not None)])
         floats.append([s[0], s[1], s[2], r * r, 1.0 / r if r else 0.0, hl,
-                       2 * hl, baba, r * r * baba, e[0], e[1], e[2],
+                       2 * hl, baba, e[0], e[1], e[2],
                        rb * rb if rb is not None else 0.0,
                        1.0 / baba if baba else 0.0])
     ti = torch.as_tensor(np.asarray(ints, np.int32).reshape(-1, 4),
                          device=device)
-    tf = torch.as_tensor(np.asarray(floats, np.float32).reshape(-1, 14),
+    tf = torch.as_tensor(np.asarray(floats, np.float32).reshape(-1, 13),
                          device=device)
     _TABLES[key] = (model, (ti, tf))
     return ti, tf

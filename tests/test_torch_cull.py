@@ -229,7 +229,7 @@ def test_geom_table_bounding_radii():
         for row, g in enumerate(vis):
             rb = raycast.bounding_radius(g)
             assert ti[row, 3] == int(rb is not None)
-            assert tf[row, 12] == np.float32(rb * rb if rb else 0.0)
+            assert tf[row, 11] == np.float32(rb * rb if rb else 0.0)
             baba = (2 * float(g.size[1])) ** 2
-            assert tf[row, 13] == np.float32(1.0 / baba if baba else 0.0)
+            assert tf[row, 12] == np.float32(1.0 / baba if baba else 0.0)
             assert (rb is None) == (g.gtype in (PLANE, ELLIPSOID))
