@@ -19,8 +19,7 @@ Phases, each printing one JSON line:
               beside two bounds: the operations these inputs need
               (`raycast.ops_needed`) or the bytes, and the unculled count.
               Then a camera inside a bounding sphere (bit identity and the
-              plain version again), and a sweep of the tile rows a warp
-              traces (device time; each bit-identical to the default)
+              plain version again)
   4. env      VectorEnv walker-walk (train mode, 16 envs) for a few random
               steps: obs (16, 9, 84, 84) uint8, finite rewards, one kernel
               launch per rendered batch; ms per env step
@@ -53,158 +52,40 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """CUDA-event time of `reps` back-to-back fn() calls, per call, in ms
-    (host launch time included where it exceeds the device work)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def profiled(fn, n):
-    """Run fn() n times under torch.profiler: (wall ms per call with the
-    profiler on, device-busy ms per call, top CUDA kernels by total ms).
-    Busy time is the sum of the CUDA kernel intervals (one stream: they do
-    not overlap); set it against a wall time taken with the profiler off,
-    since tracing slows the host."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) * 1e3 / n
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values()) / n
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy, [(k[:60], v / n) for k, v in top]
-
-
-def walker_scenes(E, seed, steps=5):
-    """E walker scenes: the port's episode init plus `steps` random-action
-    control steps (limbs overlap and touch the floor)."""
-    import torch
-    from sgqn_carla_tpu_torch.physics import domains, engine
-    from sgqn_carla_tpu_torch.render.cameras import camera_pose
-    from sgqn_carla_tpu_torch.render.raster import default_appearance
-
-    task = domains.load("walker", "walk")
-    m = task.model
-    g = torch.Generator("cuda").manual_seed(seed)
-    phys = task.init(g, E, "cuda")
-    for _ in range(steps):
-        a = torch.rand((E, m.nu), generator=g, device="cuda") * 2 - 1
-        phys = task.step(phys, a)
-    kin = engine.forward_kinematics(m, phys.qpos, phys.qvel)
-    cam = camera_pose(m, task.camera_id, kin)
-    Rg, pg = engine.geom_world(m, kin)
-    return m, (Rg, pg, default_appearance(m, E, "cuda"), cam.pos, cam.R,
-               cam.fovy)
-
-
-def compare_frames(k, r):
-    """Kernel vs plain outputs; returns worst-frame counts and max |Δ|."""
-    krgb, kseg = k[0], k[1]
-    rrgb, rseg = r[0], r[1]
-    worst_mm = worst_off2 = 0
-    max_lvl = 0.0
-    max_abs = 0.0
-    for e in range(krgb.shape[0]):
-        mm = kseg[e] != rseg[e]
-        agree = ~mm
-        d = (krgb[e] - rrgb[e]).abs().amax(0)[agree]
-        lvl = ((krgb[e] * 255).round() - (rrgb[e] * 255).round()).abs().amax(0)[agree]
-        worst_mm = max(worst_mm, int(mm.sum()))
-        worst_off2 = max(worst_off2, int((lvl > 2).sum()))
-        max_lvl = max(max_lvl, float(lvl.max()))
-        max_abs = max(max_abs, float(d.max()))
-    ok = worst_mm <= 5 and worst_off2 <= 10 and max_lvl <= 32
-    return ok, {"seg_mismatch_max": worst_mm, "px_off_gt2_max": worst_off2,
-                "max_level_diff": max_lvl, "max_abs_err": max_abs}
-
-
 SHAPES = ((16, 84), (64, 84), (768, 84), (1, 448))
 
 
-def same_bits(a, b):
-    """Two kernel outputs (rgb, seg, depth) agree bit for bit."""
-    import torch
-
-    return all(torch.equal(x, y) for x, y in zip(a, b))
-
-
-def batch_params(raycast, base, E):
-    """Packed params of E scenes cycled from the base batch."""
-    Rg, pg, app, cpos, cR, _ = base
-    rep = -(-E // Rg.shape[0])
-    sl = lambda t: t.repeat((rep,) + (1,) * (t.dim() - 1))[:E].contiguous()
-    app_e = type(app)(**{k: sl(v) for k, v in vars(app).items()})
-    return raycast._pack_params(sl(Rg), sl(pg), app_e, sl(cpos), sl(cR))
-
-
-def inside_params(raycast, m, params):
-    """The same scenes with the camera 0.2 m off the torso's axis: outside
-    the capsule (r 0.07), inside its bounding sphere (r + hl = 0.37)."""
-    off = raycast._offsets(len(m.geoms))
-    i = next(k for k, g in enumerate(m.geoms) if g.name == "torso")
-    q = params.clone()
-    Rb, pb = off["Rg"] + 9 * i, off["pg"] + 3 * i
-    for c in range(3):  # camera = p0 + 0.2 ex
-        q[:, off["cam_pos"] + c] = q[:, pb + c] + 0.2 * q[:, Rb + 3 * c]
-    return q
-
-
-def kernel_phase(raycast):
+def kernel_phase(raycast, kc):
     """Both instantiations against each other and the plain version, times
-    and bounds at several batch sizes; the inside-a-sphere check; the rows
-    sweep."""
+    and bounds at several batch sizes; the inside-a-sphere check."""
     import torch
 
     rows = []
     ok_all = True
-    m, base = walker_scenes(64, seed=0)
+    m, base = kc.walker_scenes(64, seed=0)
     fovy = base[5]
     fpr = raycast.flops_per_ray(m)
     pdim = raycast._offsets(len(m.geoms))["pdim"]
     for E, size in SHAPES:
-        params = batch_params(raycast, base, E)
+        params = kc.batch_params(base, E)
         run = lambda cull, p=params: raycast._launch(
             m, p, fovy, size, size, True, cull=cull)
         k, ku = run(True), run(False)
         r = raycast._render_packed_ref(m, params, fovy, size, size)
         torch.cuda.synchronize()
-        identical = same_bits(k, ku)
-        ok, cmp = compare_frames(k, r)
+        identical = kc.same_bits(k, ku)
+        ok, cmp = kc.compare_frames(k, r)
         ok_all &= ok and identical
-        ms = cuda_ms(lambda: run(True))
-        ms_u = cuda_ms(lambda: run(False))
+        ms = kc.cuda_ms(lambda: run(True))
+        ms_u = kc.cuda_ms(lambda: run(False))
         # the kernels' own durations on the device (profiler, one kernel
         # per call), in turns
         dev = {True: [], False: []}
         for cull in (True, False, False, True):
-            dev[cull].append(profiled(lambda: run(cull), 20)[1])
+            dev[cull].append(kc.profiled(lambda: run(cull), 20)[1])
         device_ms = statistics.mean(dev[True])
         device_ms_u = statistics.mean(dev[False])
-        plain_ms = cuda_ms(lambda: raycast._render_packed_ref(
+        plain_ms = kc.cuda_ms(lambda: raycast._render_packed_ref(
             m, params, fovy, size, size), reps=20 if E <= 64 else 5)
         P = size * size
         ops = raycast.ops_needed(m, params, fovy, size, size)
@@ -228,31 +109,15 @@ def kernel_phase(raycast):
                 max(t_ops_u, t_bytes) * 1e3 / device_ms_u)})
 
     # camera inside a capsule's bounding sphere: no ray is culled there
-    params = inside_params(raycast, m, batch_params(raycast, base, 16))
+    params = kc.camera_inside_torso_sphere(m, kc.batch_params(base, 16))
     k = raycast._launch(m, params, fovy, 84, 84, True, cull=True)
     ku = raycast._launch(m, params, fovy, 84, 84, True, cull=False)
     r = raycast._render_packed_ref(m, params, fovy, 84, 84)
     torch.cuda.synchronize()
-    ok_in, cmp_in = compare_frames(k, r)
-    inside = {"identical": same_bits(k, ku), "ok": ok_in, **cmp_in}
+    ok_in, cmp_in = kc.compare_frames(k, r)
+    inside = {"identical": kc.same_bits(k, ku), "ok": ok_in, **cmp_in}
     ok_all &= ok_in and inside["identical"]
-
-    # tile rows a warp traces (the kernel's own choice: 1 on small
-    # launches, 2 on large ones): device ms of the culled kernel, and bit
-    # identity with its own choice
-    sweep = []
-    for E, size in SHAPES:
-        params = batch_params(raycast, base, E)
-        ref = raycast._launch(m, params, fovy, size, size, True)
-        for n_rows in (1, 2, 3):
-            run = lambda: raycast._launch(m, params, fovy, size, size, True,
-                                          rows=n_rows)
-            same = same_bits(run(), ref)
-            ok_all &= same
-            sweep.append({"E": E, "size": size, "rows": n_rows,
-                          "identical": same,
-                          "device_ms": profiled(run, 20)[1]})
-    return ok_all, rows, inside, sweep
+    return ok_all, rows, inside
 
 
 def main():
@@ -266,6 +131,7 @@ def main():
     from sgqn_carla_tpu_torch.core.config import Config
     from sgqn_carla_tpu_torch.envs import make_env
     from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+    from sgqn_carla_tpu_torch.render import kernel_checks as kc
     from sgqn_carla_tpu_torch.render import raycast
     from sgqn_carla_tpu_torch.train.loop import run_training
 
@@ -290,9 +156,9 @@ def main():
           "unculled": raycast.kernel_attributes(False)})
 
     # ---- 3. kernel: culled vs unculled vs plain version
-    ok_k, rows, inside, sweep = kernel_phase(raycast)
+    ok_k, rows, inside = kernel_phase(raycast, kc)
     emit({"phase": "kernel", "ok": ok_k, "card": smi, "rows": rows,
-          "camera_inside_sphere": inside, "rows_sweep": sweep,
+          "camera_inside_sphere": inside,
           "library_ms": None,
           "library_note": "no single PyTorch call computes this function"})
     if not ok_k:
@@ -332,7 +198,7 @@ def main():
         fn()
         torch.cuda.synchronize()
         parts[name] = (time.time() - t0) * 1e3
-    wall, busy, top = profiled(lambda: venv.step(states, a), 1)
+    wall, busy, top = kc.profiled(lambda: venv.step(states, a), 1)
     rew = torch.stack(rewards)
     ok_env = (tuple(obs.shape) == (E, 9, 84, 84) and obs.dtype == torch.uint8
               and obs.is_cuda and bool(torch.isfinite(rew).all())
@@ -396,7 +262,7 @@ def main():
         upd()
     torch.cuda.synchronize()
     ms_upd = (time.time() - t0) * 100
-    wall, busy, top = profiled(upd, 5)
+    wall, busy, top = kc.profiled(upd, 5)
     emit({"phase": "update_profile", "card": smi, "batch_size": 128,
           "ms_per_update": ms_upd, "profiled_ms_per_update": wall,
           "device_busy_ms": busy, "device_idle_share": 1 - busy / ms_upd,

@@ -19,6 +19,9 @@ per call, 20 calls):
                     prologue and the stores only
   no_geoms_linear   no_geoms with each warp's stores sent to consecutive
                     addresses: what the stores shaped like 8x8 tiles cost
+  rows_1, rows_2,   every warp traces a column of 1, 2 or 3 tiles, at every
+  rows_3            launch size (the kernel takes 2 from kTwoRowsBlocks
+                    one-row blocks up, else 1): must give the same bits
 
 Prints one JSON line. Needs a CUDA device and nvcc; imports torch and the
 port only.
@@ -38,6 +41,7 @@ NO_GEOMS = "for (int base = 0; base < 0; base += 32)"
 STORE_IDX = re.escape("const int idx = (py0 + kTileH * k) * W + px;")
 LINEAR_IDX = ("const int idx = min(P - 1, (int)(((blockIdx.y * gridDim.x + blockIdx.x)"
               " * kPix + k) * kThreads + threadIdx.x));")
+ROWS_CHOICE = re.escape("? 2 : 1;")
 NO_STORE = (r"\1\n    if (out.x + out.y + out.z + t_min[k] + (float)s != 1234.5f)"
             " continue;")
 # (regex, replacement) pairs; a call site is a name not preceded by "float "
@@ -51,9 +55,11 @@ VARIANTS = {
     "no_stores": [("(" + STORE_IDX + ")", NO_STORE)],
     "no_geoms": [(GEOM_LOOP, NO_GEOMS)],
     "no_geoms_linear": [(GEOM_LOOP, NO_GEOMS), (STORE_IDX, LINEAR_IDX)],
+    **{f"rows_{n}": [(ROWS_CHOICE, f"? {n} : {n};")] for n in (1, 2, 3)},
 }
-EXACT = ("library_math", "one_ray_per_lane")
-SHAPES = ((768, 84), (16, 84), (1, 448))
+EXACT = ("library_math", "one_ray_per_lane", "rows_1", "rows_2", "rows_3")
+# 64 and 256 envs at 84 px lie on either side of kTwoRowsBlocks
+SHAPES = ((768, 84), (256, 84), (64, 84), (16, 84), (1, 448))
 
 
 def variant_source(src, subs):
@@ -72,7 +78,7 @@ def main():
         print("raycast_ablations: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    import chip_smoke as cs
+    from sgqn_carla_tpu_torch.render import kernel_checks as kc
     from sgqn_carla_tpu_torch.render import raycast
 
     out_dir = os.path.join(REPO, "build", "raycast_ablations")
@@ -99,7 +105,7 @@ def main():
         lib.raycast_launch.restype = ctypes.c_int
         libs[name] = lib
 
-    m, base = cs.walker_scenes(64, seed=0)
+    m, base = kc.walker_scenes(64, seed=0)
     fovy = base[5]
     gi, gf = raycast.geom_table(m, "cuda")
     G = len(m.geoms)
@@ -114,13 +120,12 @@ def main():
         err = lib.raycast_launch(
             params.data_ptr(), E, pdim, G, gi.data_ptr(), gf.data_ptr(),
             gi.shape[0], size, size, th, th, rgb.data_ptr(), seg.data_ptr(),
-            depth.data_ptr(), int(cull), 0,
-            torch.cuda.current_stream().cuda_stream)
+            depth.data_ptr(), int(cull), torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"cudaError_t {err}")
         return rgb, seg, depth
 
-    params = {E: cs.batch_params(raycast, base, E) for E, _ in SHAPES}
+    params = {E: kc.batch_params(base, E) for E, _ in SHAPES}
     res = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}
@@ -130,10 +135,10 @@ def main():
             for cull in (True, False):
                 run = lambda: launch(lib, params[E], size, cull)
                 if name in EXACT:
-                    row[f"identical_E{E}_{size}_{int(cull)}"] = cs.same_bits(
+                    row[f"identical_E{E}_{size}_{int(cull)}"] = kc.same_bits(
                         run(), launch(libs["kernel"], params[E], size, cull))
                 row[f"device_ms_E{E}_{size}_{'culled' if cull else 'unculled'}"] = \
-                    cs.profiled(run, 20)[1]
+                    kc.profiled(run, 20)[1]
         res[name] = row
     ok = all(v for r in res.values() if isinstance(r, dict)
              for k, v in r.items() if k.startswith("identical"))

@@ -1,0 +1,161 @@
+"""Scenes, comparisons and timers for checking the ray-cast kernel.
+
+Shared by `chip_smoke.py`, `scripts/raycast_ablations.py` and the port's
+render tests; nothing on the render path imports this module.
+
+  posed_walker      walker scenes from seeded poses (legs across the floor)
+  walker_scenes     walker scenes after a few random-action control steps
+  batch_params      packed params of E scenes cycled from a smaller batch
+  camera_inside_torso_sphere
+                    the same scenes with the camera inside the torso's
+                    bounding sphere (the walker's own camera never is)
+  compare_frames    kernel vs plain version against the renderer's bounds
+  same_bits         two kernel outputs agree bit for bit
+  cuda_ms, profiled CUDA-event and profiler times of a call
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from sgqn_carla_tpu_torch.physics import domains, engine
+from sgqn_carla_tpu_torch.render import raycast
+from sgqn_carla_tpu_torch.render.cameras import camera_pose
+from sgqn_carla_tpu_torch.render.raster import default_appearance
+
+
+def posed_walker(E: int, seed: int, device="cpu"):
+    """Walker scenes from seeded poses with the legs across the floor:
+    (model, Rg, pg, appearance, cam_pos, cam_R, fovy), the arguments of
+    `raycast.render_batch` up to the image size."""
+    task = domains.load("walker", "walk")
+    m = task.model
+    rs = np.random.RandomState(seed)
+    q = np.zeros((E, m.nv), np.float32)
+    q[:, 0] = rs.uniform(-0.6, 0.0, E)
+    q[:, 1] = rs.uniform(-0.5, 0.5, E)
+    q[:, 2] = rs.uniform(-1.0, 1.0, E)
+    for j in range(3, m.nv):
+        q[:, j] = rs.uniform(*m.jnt_range[j], E)
+    q = torch.from_numpy(q).to(device)
+    kin = engine.forward_kinematics(m, q, torch.zeros_like(q))
+    cam = camera_pose(m, task.camera_id, kin)
+    Rg, pg = engine.geom_world(m, kin)
+    return (m, Rg, pg, default_appearance(m, E, device), cam.pos, cam.R,
+            cam.fovy)
+
+
+def walker_scenes(E: int, seed: int, device="cuda", steps: int = 5):
+    """E walker scenes: the port's episode init plus `steps` random-action
+    control steps (limbs overlap and touch the floor). Returns the model
+    and (Rg, pg, appearance, cam_pos, cam_R, fovy)."""
+    task = domains.load("walker", "walk")
+    m = task.model
+    g = torch.Generator(device).manual_seed(seed)
+    phys = task.init(g, E, device)
+    for _ in range(steps):
+        a = torch.rand((E, m.nu), generator=g, device=device) * 2 - 1
+        phys = task.step(phys, a)
+    kin = engine.forward_kinematics(m, phys.qpos, phys.qvel)
+    cam = camera_pose(m, task.camera_id, kin)
+    Rg, pg = engine.geom_world(m, kin)
+    return m, (Rg, pg, default_appearance(m, E, device), cam.pos, cam.R,
+               cam.fovy)
+
+
+def batch_params(base, E: int) -> torch.Tensor:
+    """Packed params of E scenes cycled from the batch `base` (the second
+    value `walker_scenes` returns)."""
+    Rg, pg, app, cpos, cR, _ = base
+    rep = -(-E // Rg.shape[0])
+    sl = lambda t: t.repeat((rep,) + (1,) * (t.dim() - 1))[:E].contiguous()
+    app_e = type(app)(**{k: sl(v) for k, v in vars(app).items()})
+    return raycast._pack_params(sl(Rg), sl(pg), app_e, sl(cpos), sl(cR))
+
+
+def camera_inside_torso_sphere(model, params: torch.Tensor) -> torch.Tensor:
+    """The same packed scenes with the camera 0.2 m off the torso's axis:
+    outside the capsule (r 0.07), inside its bounding sphere (r + hl =
+    0.37), where no ray of the torso is culled."""
+    off = raycast._offsets(len(model.geoms))
+    i = next(k for k, g in enumerate(model.geoms) if g.name == "torso")
+    q = params.clone()
+    Rb, pb = off["Rg"] + 9 * i, off["pg"] + 3 * i
+    for c in range(3):  # camera = p0 + 0.2 ex
+        q[:, off["cam_pos"] + c] = q[:, pb + c] + 0.2 * q[:, Rb + 3 * c]
+    return q
+
+
+def compare_frames(k, r):
+    """Kernel outputs k against the plain version's r, frame by frame:
+    at most 5 seg mismatches (grazing rays flip on float association and
+    FMA contraction); on seg-agreeing pixels at most 10 pixels off by > 2
+    levels of 255, none by > 32. Returns (ok, the worst frame's counts
+    and the largest |Δrgb|)."""
+    krgb, kseg = k[0], k[1]
+    rrgb, rseg = r[0], r[1]
+    worst_mm = worst_off2 = 0
+    max_lvl = max_abs = 0.0
+    for e in range(krgb.shape[0]):
+        agree = kseg[e] == rseg[e]
+        d = (krgb[e] - rrgb[e]).abs().amax(0)[agree]
+        lvl = ((krgb[e] * 255).round()
+               - (rrgb[e] * 255).round()).abs().amax(0)[agree]
+        worst_mm = max(worst_mm, int((~agree).sum()))
+        worst_off2 = max(worst_off2, int((lvl > 2).sum()))
+        max_lvl = max(max_lvl, float(lvl.max()))
+        max_abs = max(max_abs, float(d.max()))
+    ok = worst_mm <= 5 and worst_off2 <= 10 and max_lvl <= 32
+    return ok, {"seg_mismatch_max": worst_mm, "px_off_gt2_max": worst_off2,
+                "max_level_diff": max_lvl, "max_abs_err": max_abs}
+
+
+def same_bits(a, b) -> bool:
+    """Two kernel outputs (rgb, seg[, depth]) agree bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """CUDA-event time of `reps` back-to-back fn() calls, per call, in ms
+    (host launch time included where it exceeds the device work)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profiled(fn, n: int):
+    """Run fn() n times under torch.profiler: (wall ms per call with the
+    profiler on, device-busy ms per call, top CUDA kernels by total ms).
+    Busy time is the sum of the CUDA kernel intervals (one stream: they do
+    not overlap); set it against a wall time taken with the profiler off,
+    since tracing slows the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / n
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values()) / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return wall, busy, [(k[:60], v / n) for k, v in top]

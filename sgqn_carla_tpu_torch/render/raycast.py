@@ -294,7 +294,7 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         lib.raycast_launch.restype = ctypes.c_int
         lib.raycast_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
         lib.raycast_attributes.restype = ctypes.c_int
@@ -313,11 +313,10 @@ def kernel_attributes(cull: bool = True) -> dict:
 
 
 def _launch(model: Model, params: torch.Tensor, fovy: float, H: int, W: int,
-            with_depth: bool, cull: bool = True, rows: int = 0):
+            with_depth: bool, cull: bool = True):
     """Launch the kernel on packed params. `cull=False` (the same kernel
-    without its bounding tests) and `rows` (tile rows a warp traces; 0 lets
-    the kernel choose from the launch's size) serve only the card's checks
-    and timings; the render path takes the defaults."""
+    without its bounding tests) serves only the card's checks and timings;
+    the render path always culls."""
     global launches
     if params.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {params.device}")
@@ -344,7 +343,7 @@ def _launch(model: Model, params: torch.Tensor, fovy: float, H: int, W: int,
             params.data_ptr(), E, pdim, G, gi.data_ptr(), gf.data_ptr(),
             gi.shape[0], H, W, tan_half * (W / H), tan_half, rgb.data_ptr(),
             seg.data_ptr(), depth.data_ptr() if depth is not None else None,
-            int(cull), int(rows), torch.cuda.current_stream(dev).cuda_stream)
+            int(cull), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"raycast kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -7,15 +7,15 @@ They skip without a CUDA device. This file imports torch and the port only
         tests/test_torch_cuda.py
 """
 
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from sgqn_carla_tpu_torch.physics import domains
-from sgqn_carla_tpu_torch.physics import engine
+from sgqn_carla_tpu_torch.render import kernel_checks as kc
 from sgqn_carla_tpu_torch.render import raycast
-from sgqn_carla_tpu_torch.render.cameras import camera_pose
-from sgqn_carla_tpu_torch.render.raster import default_appearance
 
 
 def _cuda():
@@ -27,66 +27,27 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _scenes(E, seed, dev):
-    """Walker scenes from seeded poses with the legs across the floor."""
-    task = domains.load("walker", "walk")
-    m = task.model
-    rs = np.random.RandomState(seed)
-    q = np.zeros((E, m.nv), np.float32)
-    q[:, 0] = rs.uniform(-0.6, 0.0, E)
-    q[:, 1] = rs.uniform(-0.5, 0.5, E)
-    q[:, 2] = rs.uniform(-1.0, 1.0, E)
-    for j in range(3, m.nv):
-        q[:, j] = rs.uniform(*m.jnt_range[j], E)
-    q = torch.from_numpy(q).to(dev)
-    kin = engine.forward_kinematics(m, q, torch.zeros_like(q))
-    cam = camera_pose(m, task.camera_id, kin)
-    Rg, pg = engine.geom_world(m, kin)
-    return m, (m, Rg, pg, default_appearance(m, E, dev), cam.pos, cam.R,
-               cam.fovy)
-
-
-def _check(k, r, E):
-    """Kernel vs plain version, per frame: at most 5 seg mismatches
-    (grazing rays flip on float association/FMA contraction); on
-    seg-agreeing pixels at most 10 pixels off by > 2 levels, none > 32."""
-    krgb, kseg, kdepth = k
-    rrgb, rseg, rdepth = r
-    for e in range(E):
-        seg_mm = (kseg[e] != rseg[e]).cpu().numpy()
-        assert seg_mm.sum() <= 5, seg_mm.sum()
-        dr = ((krgb[e] * 255).round() - (rrgb[e] * 255).round()).abs()
-        dr = dr.amax(0).cpu().numpy()[~seg_mm]
-        assert (dr > 2).sum() <= 10 and dr.max() <= 32, dr.max()
+def _check(k, r):
+    """Kernel vs plain version within the renderer's bounds
+    (kernel_checks.compare_frames)."""
+    ok, worst = kc.compare_frames(k, r)
+    assert ok, worst
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,size", [(16, 84), (1, 448)])
 def test_kernel_matches_plain_version(E, size):
     dev = _cuda()
-    m, args = _scenes(E, 5, dev)
+    args = kc.posed_walker(E, 5, dev)
     before = raycast.launches
     k = raycast.render_batch(*args, size, size, with_depth=True)
     torch.cuda.synchronize()
     assert raycast.launches == before + 1
     assert k[0].is_cuda and k[0].shape == (E, 3, size, size)
     r = raycast.render_batch_ref(*args, size, size, with_depth=True)
-    _check(k, r, E)
+    _check(k, r)
     segs = set(torch.unique(k[1]).tolist())
     assert {-1, 0}.issubset(segs) and len(segs) >= 4
-
-
-def _camera_inside_torso_sphere(m, params):
-    """The same scenes with the camera 0.2 m off the torso's axis: outside
-    the capsule (r 0.07), inside its bounding sphere (r + hl = 0.37), where
-    no ray of the torso is culled."""
-    off = raycast._offsets(len(m.geoms))
-    i = next(k for k, g in enumerate(m.geoms) if g.name == "torso")
-    q = params.clone()
-    Rb, pb = off["Rg"] + 9 * i, off["pg"] + 3 * i
-    for c in range(3):
-        q[:, off["cam_pos"] + c] = q[:, pb + c] + 0.2 * q[:, Rb + 3 * c]
-    return q
 
 
 @pytest.mark.cuda
@@ -94,27 +55,24 @@ def _camera_inside_torso_sphere(m, params):
                                            (16, 84, True)])
 def test_culling_changes_no_output_bit(E, size, inside):
     """The culled and unculled instantiations agree bit for bit in rgb,
-    seg and depth, whatever the tile rows a warp traces; both stay within
-    the plain version's bounds."""
+    seg and depth; both stay within the plain version's bounds."""
     dev = _cuda()
-    m, args = _scenes(E, 7, dev)
-    params = raycast._pack_params(*args[1:6])
+    m, *args = kc.posed_walker(E, 7, dev)
+    params = raycast._pack_params(*args[:5])
     if inside:
-        params = _camera_inside_torso_sphere(m, params)
-    fovy = args[6]
+        params = kc.camera_inside_torso_sphere(m, params)
+    fovy = args[5]
     k = raycast._launch(m, params, fovy, size, size, True)
-    for cull, rows in ((False, 0), (True, 1), (True, 2), (True, 3)):
-        other = raycast._launch(m, params, fovy, size, size, True, cull=cull,
-                                rows=rows)
-        for a, b in zip(k, other):
-            assert torch.equal(a, b), (cull, rows)
-    _check(k, raycast._render_packed_ref(m, params, fovy, size, size), E)
+    ku = raycast._launch(m, params, fovy, size, size, True, cull=False)
+    for a, b in zip(k, ku):
+        assert torch.equal(a, b)
+    _check(k, raycast._render_packed_ref(m, params, fovy, size, size))
 
 
 @pytest.mark.cuda
 def test_render_frames_launches_the_culled_kernel(monkeypatch):
     dev = _cuda()
-    m, args = _scenes(2, 1, dev)
+    args = kc.posed_walker(2, 1, dev)
     calls = []
     launch = raycast._launch
 
@@ -130,10 +88,101 @@ def test_render_frames_launches_the_culled_kernel(monkeypatch):
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_input():
     dev = _cuda()
-    m, args = _scenes(2, 0, dev)
-    params = raycast._pack_params(*args[1:6]).double()
+    m, *args = kc.posed_walker(2, 0, dev)
+    params = raycast._pack_params(*args[:5]).double()
     with pytest.raises(ValueError):
-        raycast._launch(m, params, args[6], 84, 84, False)
+        raycast._launch(m, params, args[5], 84, 84, False)
+
+
+_MATH_SRC = """#include "%s"
+// sqrt_rn, div_rn and rcp_rn of the kernel beside the library's IEEE
+// functions, on the same inputs
+__global__ void math_kernel(const float* a, const float* b, int n, float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = sqrt_rn(a[i]);
+  out[n + i] = sqrtf(a[i]);
+  out[2 * n + i] = div_rn(a[i], b[i]);
+  out[3 * n + i] = __fdiv_rn(a[i], b[i]);
+  out[4 * n + i] = rcp_rn(b[i]);
+  out[5 * n + i] = __frcp_rn(b[i]);
+}
+extern "C" int math_check(const float* a, const float* b, int n, float* out) {
+  math_kernel<<<(n + 255) / 256, 256>>>(a, b, n, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _floats(rs, lo, hi, per=256, neg=False):
+    """float32 bit patterns of every binade 2^lo ... 2^hi (lo >= -126):
+    each binade's least and greatest value and random ones between."""
+    e = np.repeat(np.arange(lo, hi + 1), per)
+    m = rs.randint(0, 1 << 23, e.size)
+    m[::per], m[1::per] = 0, (1 << 23) - 1
+    sign = rs.randint(0, 2, e.size) if neg else np.zeros_like(e)
+    return ((sign << 31) | ((e + 127) << 23) | m).astype(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def math_check(tmp_path_factory):
+    import shutil
+    import subprocess
+
+    _cuda()
+    d = tmp_path_factory.mktemp("math_check")
+    cu, so = os.path.join(d, "math_check.cu"), os.path.join(d, "math_check.so")
+    with open(cu, "w") as f:
+        f.write(_MATH_SRC % raycast._SRC)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, *raycast.NVCC_FLAGS, "-o", so, cu], check=True)
+    lib = ctypes.CDLL(so)
+    lib.math_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p]
+
+    def run(a_bits, b_bits):
+        """(ours, library's) bit patterns of sqrt(a), a / b and 1 / b."""
+        a = torch.from_numpy(a_bits.view(np.float32)).cuda()
+        b = torch.from_numpy(b_bits.view(np.float32)).cuda()
+        out = torch.empty(6 * a.numel(), device="cuda")
+        assert lib.math_check(a.data_ptr(), b.data_ptr(), a.numel(),
+                              out.data_ptr()) == 0
+        o = out.view(torch.int32).cpu().numpy().reshape(3, 2, -1)
+        return {"sqrt": o[0], "div": o[1], "rcp": o[2]}
+    return run
+
+
+@pytest.mark.cuda
+def test_ieee_primitives_match_the_library(math_check):
+    """The kernel's branch-free sqrt_rn, div_rn and rcp_rn give the bits of
+    the library's sqrtf, __fdiv_rn and __frcp_rn over the ranges its
+    source note states, swept binade by binade: sqrt of ±0, every
+    subnormal and every normal x (across the 2^-100 rescale); 1/x for
+    normal |x| < 2^126; a / b for normal |b| < 2^126 and a = +0 or
+    |a| >= 2^-100, with |a / b| < 2^126."""
+    rs = np.random.RandomState(0)
+    sub = np.concatenate([np.arange(1, 4096), rs.randint(1, 1 << 23, 4096),
+                          [0, 1 << 31, (1 << 23) - 1]]).astype(np.uint32)
+    near = np.arange(0x0D800000 - 4096, 0x0D800000 + 4096, dtype=np.uint32)
+    x = np.concatenate([sub, near, _floats(rs, -126, 127)])
+    got = math_check(x, np.ones_like(x) * np.uint32(0x3F800000))["sqrt"]
+    assert (got[0] == got[1]).all(), x[got[0] != got[1]][:8]
+
+    b = _floats(rs, -126, 125, per=64, neg=True)
+    got = math_check(b, b)["rcp"]
+    assert (got[0] == got[1]).all(), b[got[0] != got[1]][:8]
+
+    ea, eb = np.meshgrid(np.arange(-100, 128), np.arange(-126, 126))
+    keep = ea - eb <= 125
+    ea, eb = np.repeat(ea[keep], 8), np.repeat(eb[keep], 8)
+    a = ((rs.randint(0, 2, ea.size) << 31) | ((ea + 127) << 23)
+         | rs.randint(0, 1 << 23, ea.size)).astype(np.uint32)
+    a[::97] = 0
+    b = ((rs.randint(0, 2, eb.size) << 31) | ((eb + 127) << 23)
+         | rs.randint(0, 1 << 23, eb.size)).astype(np.uint32)
+    got = math_check(a, b)["div"]
+    bad = got[0] != got[1]
+    assert not bad.any(), list(zip(a[bad][:8], b[bad][:8]))
 
 
 def _agent(precision, device):

@@ -16,34 +16,22 @@ import pytest
 import torch
 
 from sgqn_carla_tpu_torch.ops import v3
-from sgqn_carla_tpu_torch.physics import domains, engine
+from sgqn_carla_tpu_torch.physics import domains
 from sgqn_carla_tpu_torch.physics.model import (
     BOX, CAPSULE, CYLINDER, ELLIPSOID, PLANE, SPHERE, ModelBuilder,
 )
 from sgqn_carla_tpu_torch.render import raster, raycast
-from sgqn_carla_tpu_torch.render.cameras import camera_pose
+from sgqn_carla_tpu_torch.render.kernel_checks import (
+    camera_inside_torso_sphere, posed_walker,
+)
 from sgqn_carla_tpu_torch.render.raster import default_appearance
 
 
 def _walker_params(E, seed):
     """Packed params of walker scenes from seeded poses with the legs
     across the floor, and the model and fovy."""
-    task = domains.load("walker", "walk")
-    m = task.model
-    rs = np.random.RandomState(seed)
-    q = np.zeros((E, m.nv), np.float32)
-    q[:, 0] = rs.uniform(-0.6, 0.0, E)
-    q[:, 1] = rs.uniform(-0.5, 0.5, E)
-    q[:, 2] = rs.uniform(-1.0, 1.0, E)
-    for j in range(3, m.nv):
-        q[:, j] = rs.uniform(*m.jnt_range[j], E)
-    q = torch.from_numpy(q)
-    kin = engine.forward_kinematics(m, q, torch.zeros_like(q))
-    cam = camera_pose(m, task.camera_id, kin)
-    Rg, pg = engine.geom_world(m, kin)
-    params = raycast._pack_params(Rg, pg, default_appearance(m, E, "cpu"),
-                                  cam.pos, cam.R)
-    return m, params, cam.fovy
+    m, *args, fovy = posed_walker(E, seed)
+    return m, raycast._pack_params(*args), fovy
 
 
 def _pose(params, G, i):
@@ -149,7 +137,12 @@ def test_bounding_test_with_the_camera_inside_a_sphere():
     i = next(k for k, g in enumerate(m.geoms) if g.name == "torso")
     poses = [_pose(params, len(m.geoms), k) for k in range(len(m.geoms))]
     p0, ex = poses[i][0], poses[i][1]
-    o = v3.add(p0, v3.scale(ex, 0.2))
+    off = raycast._offsets(len(m.geoms))
+    moved = camera_inside_torso_sphere(m, params)
+    o = tuple(moved[:, off["cam_pos"] + c:off["cam_pos"] + c + 1]
+              for c in range(3))
+    assert torch.allclose(torch.cat(o, 1),
+                          torch.cat(v3.add(p0, v3.scale(ex, 0.2)), 1))
     u = _unit(np.random.RandomState(1), 20000).astype(np.float32)
     d = tuple(torch.from_numpy(u[None, :, c]).expand(2, -1) for c in range(3))
     assert raycast.ray_may_hit(o, d, p0, raycast.bounding_radius(
