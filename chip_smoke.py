@@ -26,8 +26,21 @@ Phases, each printing one JSON line:
   5. trainer  run_training at the default widths (11×32 trunk, hidden 1024,
               batch 128, bf16, 84 px, 16 envs) for a short episode schedule:
               finite losses, train.log written, every parameter on cuda,
-              the kernel launched; updates/s and env steps/s
-  6. the `kernels` line, then the card's nvidia-smi line, then
+              the kernel launched; updates/s and env steps/s; then
+     update_profile  ms per SAC update, device-busy share, top device ops
+  6. sgsac_trainer  the same run with --algorithm sgsac (guided-backprop
+              mask, consistency loss, attribution decoder): every loss,
+              aux_loss included, finite and non-zero at least once,
+              train/aux_loss in train.log, every parameter and Adam moment
+              on cuda (decoder and aux optimizer included), the kernel
+              launched; updates/s and env steps/s; then
+     sgsac_update_profile  ms per sgsac update, device-busy share, top
+              device ops, the mask's pixel share (0.04-0.25: the exact
+              0.95 quantile keeps ~5% plus ties), the time of the mask
+              step and of the row quantile alone at (384, 7056) f32, and
+              each stage of the update (sample, mask, critic, actor,
+              targets, aux) alone: host ms and device-busy ms
+  7. the `kernels` line, then the card's nvidia-smi line, then
      {"ok": true, "device": {...}} as the last line.
 
 It imports torch and the port only. It exits non-zero, before printing any
@@ -118,6 +131,121 @@ def kernel_phase(raycast, kc):
     inside = {"identical": kc.same_bits(k, ku), "ok": ok_in, **cmp_in}
     ok_all &= ok_in and inside["identical"]
     return ok_all, rows, inside
+
+
+def _on_cuda(st) -> bool:
+    """Every parameter, target, aux module and Adam moment of an agent
+    state lies on the card."""
+    mods = [st.params, st.target_params] + (
+        [st.aux_params] if st.aux_params is not None else [])
+    tensors = [p for m in mods for p in m.parameters()] + [st.log_alpha]
+    for opt in (st.actor_opt, st.critic_opt, st.alpha_opt, st.aux_opt):
+        if opt is not None:
+            tensors += [opt.count, *opt.mu, *opt.nu]
+    return all(t.is_cuda for t in tensors)
+
+
+def stage_breakdown(agent, st, buf, rst, kc, reps=5):
+    """Each stage of one sgsac update run alone on the trained state:
+    {stage: {"ms": wall per call with the profiler off, "device_ms":
+    device-busy ms per call}}. The aux stage runs at an even step."""
+    import torch
+
+    B, A = agent.cfg.batch_size, agent.action_dim
+    batch = agent.sample_batch(buf, rst, st, {})
+    ctx = agent.update_context(st, batch, {})
+    noise = torch.randn((B, A), device="cuda")
+    step = st.step
+    st.step = 2 * (step // 2)
+    stages = {
+        "sample": lambda: agent.sample_batch(buf, rst, st, {}),
+        "mask": lambda: agent.update_context(st, batch, {}),
+        "critic": lambda: agent.update_critic(st, batch, noise, ctx, {}),
+        "actor": lambda: agent.update_actor_and_alpha(st, batch, noise),
+        "targets": lambda: agent.soft_update_targets(st),
+        "aux": lambda: agent.update_aux(st, batch, {}, ctx),
+    }
+    out = {}
+    for name, fn in stages.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.time() - t0) * 1e3 / reps,
+                     "device_ms": kc.profiled(fn, 3)[1]}
+    st.step = step
+    return out
+
+
+def sgsac_phases(cfg, smi, run_training, raycast, kc):
+    """The sgsac trainer at the SAC phase's schedule, then its update
+    profile on the trained state and filled ring. Returns (ok, launches)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.ops import guided_backprop as gb
+
+    cfg = cfg.replace(algorithm="sgsac").finalize()
+    E = cfg.num_envs
+    raycast.launches = 0
+    t0 = time.time()
+    out = run_training(cfg)
+    train_s = time.time() - t0
+    launches = raycast.launches
+    tm, st, agent = out["timing"], out["agent_state"], out["agent"]
+    with open(os.path.join(out["work_dir"], "train.log")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = ("critic_loss", "actor_loss", "alpha_loss", "aux_loss")
+    upd_rows = [r for r in rows if "critic_loss" in r]
+    finite = all(abs(r[k]) < float("inf") for r in upd_rows for k in losses)
+    nonzero = {k: any(r.get(k, 0.0) != 0.0 for r in upd_rows) for k in losses}
+    on_cuda = _on_cuda(st)
+    ok = (bool(upd_rows) and all("aux_loss" in r for r in upd_rows)
+          and finite and all(nonzero.values()) and on_cuda and launches > 0)
+    emit({"phase": "sgsac_trainer", "ok": ok, "card": smi,
+          "seconds": train_s, "episodes": out["episodes"],
+          "kernel_launches": launches, "params_on_cuda": on_cuda,
+          "losses_finite": finite, "losses_nonzero_once": nonzero,
+          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "env_steps_per_s": (tm["random_steps"] * E
+                              / max(tm["random_s"], 1e-9)),
+          "update_chunk_s": tm["update_chunk_s"],
+          "final_metrics": out["final_metrics"]})
+    if not ok:
+        return False, launches
+
+    buf, rst = out["replay"]
+    upd = lambda: agent.update(st, rst, buf)
+    upd()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(10):
+        upd()
+    torch.cuda.synchronize()
+    ms_upd = (time.time() - t0) * 100
+    wall, busy, top = kc.profiled(upd, 5)
+    batch = agent.sample_batch(buf, rst, st, {})
+    mask = agent.update_context(st, batch, {})["mask"]
+    share = float(mask.float().mean())
+    mask_ms = kc.cuda_ms(lambda: agent.update_context(st, batch, {}), reps=10)
+    grad = agent.attribution_grad(st.params, batch.obs.float(), batch.action)
+    attr = grad.reshape(-1, 3, 3, 84, 84).abs().amax(2).reshape(-1, 84 * 84)
+    q_ms = kc.cuda_ms(lambda: gb._row_quantile(attr, 0.95))
+    lib_ms = kc.cuda_ms(lambda: torch.quantile(attr, 0.95, dim=-1))
+    same = torch.equal(gb._row_quantile(attr, 0.95),
+                       torch.quantile(attr, 0.95, dim=-1))
+    stages = stage_breakdown(agent, st, buf, rst, kc)
+    ok = 0.04 <= share <= 0.25
+    emit({"phase": "sgsac_update_profile", "ok": ok, "card": smi,
+          "batch_size": cfg.batch_size, "ms_per_update": ms_upd,
+          "profiled_ms_per_update": wall, "device_busy_ms": busy,
+          "device_idle_share": 1 - busy / ms_upd, "top_kernels_ms": top,
+          "mask_pixel_share": share, "mask_step_ms": mask_ms,
+          "row_quantile_shape": list(attr.shape), "row_quantile_ms": q_ms,
+          "torch_quantile_ms": lib_ms,
+          "torch_quantile_bit_identical": same, "stages": stages})
+    return ok, launches
 
 
 def main():
@@ -268,7 +396,12 @@ def main():
           "device_busy_ms": busy, "device_idle_share": 1 - busy / ms_upd,
           "top_kernels_ms": top})
 
-    # ---- 6. kernels line, card line, result
+    # ---- 6. the sgsac trainer and its update profile
+    ok_sg, sg_launches = sgsac_phases(cfg, smi, run_training, raycast, kc)
+    if not ok_sg:
+        return 1
+
+    # ---- 7. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -276,6 +409,8 @@ def main():
         "replaces": "sgqn_carla_tpu/render/pallas_raster.py:236",
         "tpu_kernel": "sgqn_carla_tpu/render/pallas_raster.py:_make_kernel",
         "launches": main_launches, "ok": ok_k,
+        "launches_by_path": {"trainer": main_launches,
+                             "sgsac_trainer": sg_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],

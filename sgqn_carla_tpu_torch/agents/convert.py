@@ -1,17 +1,18 @@
 """Weights of the JAX agent → the port's modules.
 
-`params_from_jax(tree)` takes a JAX `AgentState.params` or `target_params`
-tree as nested dicts of numpy arrays ({"trunk", "actor", "critic"}, or the
-target's {"trunk", "critic"}) and returns one torch `state_dict` per
-module, ready for `load_state_dict` on the port's `Trunk`, `ActorHead` and
-`CriticHead`:
+`params_from_jax(tree)` takes a JAX `AgentState.params`, `target_params`
+or SGQN `aux_params` tree as nested dicts of numpy arrays ({"trunk",
+"actor", "critic"}, the target's {"trunk", "critic"}, or {"decoder"}) and
+returns one torch `state_dict` per module, ready for `load_state_dict` on
+the port's `Trunk`, `ActorHead`, `CriticHead` and `AttributionDecoder`:
   * conv kernels HWIO → OIHW;
   * Dense kernels (in, out) → Linear weights (out, in);
   * LayerNorm `scale` → `weight`;
   * flatten order: none to permute. The port's trunk flattens its
     (B, C, H, W) output in (H, W, C) order, which is the JAX trunk's NHWC
     `reshape(B, -1)` order, so the first projection layer takes the JAX
-    kernel's rows as they are.
+    kernel's rows as they are. Nor for the decoder: the port reshapes its
+    Dense output NHWC, as the JAX decoder does, before moving channels.
 """
 
 from __future__ import annotations
@@ -76,8 +77,16 @@ def critic_state(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def decoder_state(tree) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _dense(tree["proj"], "proj", out)
+    for name in ("conv1", "conv2", "conv3"):
+        _conv(tree[name], name, out)
+    return out
+
+
 _CONVERTERS = {"trunk": trunk_state, "actor": actor_state,
-               "critic": critic_state}
+               "critic": critic_state, "decoder": decoder_state}
 
 
 def params_from_jax(tree) -> Dict[str, Dict[str, torch.Tensor]]:

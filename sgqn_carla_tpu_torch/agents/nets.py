@@ -3,7 +3,10 @@
 Counterparts of `sgqn_carla_tpu/agents/nets.py`: SharedCNN (center-crop 84
 → /255 → conv s2 → (L−1)× conv s1) with delta-orthogonal init, HeadCNN
 (extra convs + flatten), Trunk, RLProjection (Linear + LayerNorm + tanh),
-`gaussian_logprob`, `squash`, ActorHead, QFunction and CriticHead.
+`gaussian_logprob`, `squash`, ActorHead, QFunction, CriticHead and the
+SGQN AttributionDecoder. The trunk and the critic take an `act` callable
+(default ReLU) so the guided-backprop pass can swap in `guided_relu`
+while sharing parameters.
 
 Layouts: inputs arrive channel-first (B, K*3, H, W) like the JAX modules'.
 The convs run channels-last in memory, and the trunk flattens its
@@ -61,13 +64,13 @@ class SharedCNN(nn.Module):
             + [_conv(num_filters, num_filters, 1)
                for _ in range(num_layers - 1)])
 
-    def forward(self, x):
+    def forward(self, x, act=F.relu):
         x = center_crop(x, 84)
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = x / 255.0
         for i, c in enumerate(self.convs):
             if i > 0:
-                x = F.relu(x)
+                x = act(x)
             x = F.conv2d(x, c.weight.to(self.dtype), c.bias.to(self.dtype),
                          c.stride)
         return x
@@ -83,9 +86,9 @@ class HeadCNN(nn.Module):
         self.convs = nn.ModuleList(
             [_conv(num_filters, num_filters, 1) for _ in range(num_layers)])
 
-    def forward(self, x):
+    def forward(self, x, act=F.relu):
         for c in self.convs:
-            x = F.conv2d(F.relu(x), c.weight.to(self.dtype),
+            x = F.conv2d(act(x), c.weight.to(self.dtype),
                          c.bias.to(self.dtype))
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
@@ -104,8 +107,8 @@ class Trunk(nn.Module):
         side = (84 - 3) // 2 + 1 - 2 * (num_shared_layers - 1 + num_head_layers)
         self.feature_dim = side * side * num_filters
 
-    def forward(self, x):
-        return self.head(self.shared(x)).float()
+    def forward(self, x, act=F.relu):
+        return self.head(self.shared(x, act), act).float()
 
 
 class RLProjection(nn.Module):
@@ -167,11 +170,11 @@ class QFunction(nn.Module):
         self.ln0 = nn.LayerNorm(hidden_dim, eps=1e-6) if use_layernorm else None
         self.ln1 = nn.LayerNorm(hidden_dim, eps=1e-6) if use_layernorm else None
 
-    def forward(self, obs_feat, action):
+    def forward(self, obs_feat, action, act=F.relu):
         h = self.fc0(torch.cat([obs_feat, action], dim=-1))
-        h = F.relu(self.ln0(h) if self.ln0 is not None else h)
+        h = act(self.ln0(h) if self.ln0 is not None else h)
         h = self.fc1(h)
-        h = F.relu(self.ln1(h) if self.ln1 is not None else h)
+        h = act(self.ln1(h) if self.ln1 is not None else h)
         return self.fc2(h)
 
 
@@ -188,6 +191,64 @@ class CriticHead(nn.Module):
         self.Q2 = QFunction(projection_dim + action_dim, hidden_dim,
                             q_layernorm)
 
-    def forward(self, feats, action):
+    def forward(self, feats, action, act=F.relu):
         h = self.projection(feats)
-        return self.Q1(h, action), self.Q2(h, action)
+        return self.Q1(h, action, act), self.Q2(h, action, act)
+
+    def encode(self, feats):
+        return self.projection(feats)
+
+
+def _lecun_normal_(w: torch.Tensor):
+    """flax's default kernel init: truncated normal (±2σ) of variance
+    1/fan_in."""
+    fan_in = w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std)
+
+
+def _upsample2(x):
+    """Nearest-neighbour 2× upsample of (B, C, H, W)."""
+    b, c, h, w = x.shape
+    x = x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2)
+    return x.reshape(b, c, 2 * h, 2 * w)
+
+
+class AttributionDecoder(nn.Module):
+    """SGQN saliency decoder: (feat + action) → (K·3)×out_size² logits.
+    Linear to 32·s·s, reshaped NHWC as the JAX module does (so converted
+    weights line up), then conv 128 → 2× up → conv 64 → 2× up → conv
+    out_channels (padding 1). When 4·s ≠ out_size the grid is resized by
+    nearest with half-pixel centres (`jax.image.resize` "nearest").
+    With `dtype=torch.bfloat16` the Dense and the convs compute in bf16;
+    the logits come out f32."""
+
+    def __init__(self, action_dim: int, emb_dim: int = 100, spatial: int = 21,
+                 out_channels: int = 9, out_size: int = 84,
+                 dtype=torch.float32):
+        super().__init__()
+        self.spatial, self.out_size, self.dtype = spatial, out_size, dtype
+        self.proj = _linear(emb_dim + action_dim, 32 * spatial * spatial)
+        self.conv1 = nn.Conv2d(32, 128, 3, padding=1)
+        self.conv2 = nn.Conv2d(128, 64, 3, padding=1)
+        self.conv3 = nn.Conv2d(64, out_channels, 3, padding=1)
+        for c in (self.conv1, self.conv2, self.conv3):
+            _lecun_normal_(c.weight)
+            nn.init.zeros_(c.bias)
+
+    def _conv(self, x, c):
+        return F.conv2d(x, c.weight.to(self.dtype), c.bias.to(self.dtype),
+                        padding=1)
+
+    def forward(self, feat, action):
+        s, dt = self.spatial, self.dtype
+        x = torch.cat([feat, action], dim=-1).to(dt)
+        x = F.linear(x, self.proj.weight.to(dt), self.proj.bias.to(dt))
+        x = x.reshape(-1, s, s, 32).permute(0, 3, 1, 2)  # NHWC → (B, C, H, W)
+        x = self._conv(F.relu(x), self.conv1)
+        x = self._conv(F.relu(_upsample2(x)), self.conv2)
+        x = self._conv(F.relu(_upsample2(x)), self.conv3)
+        if x.shape[-1] != self.out_size:
+            x = F.interpolate(x, size=(self.out_size, self.out_size),
+                              mode="nearest-exact")
+        return x.float()

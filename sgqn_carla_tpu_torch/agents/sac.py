@@ -13,6 +13,11 @@ state's `torch.Generator` or are injected (`draws`), so tests can feed the
 JAX update's draws. The update frequency gates are host-side integer
 checks on the step counter; the TD gate itself is `torch.where` on device
 tensors, so an update never waits on the device.
+
+Algorithm hooks, as the JAX `SAC._update` has them: `init_aux` (aux
+modules and optimizer), `update_context` (once per update, before the
+critic step), `critic_loss_fn` (given the context and the draws) and
+`update_aux` (after the target update, before the step count moves).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from sgqn_carla_tpu_torch.agents import nets
 from sgqn_carla_tpu_torch.core.config import Config
@@ -43,9 +49,11 @@ class AdamState:
 class Adam:
     """`optax.adam` (bias-corrected, eps outside the sqrt) as in-place torch
     ops, with the TD gate's masking: `keep` (0/1 tensor) zeroes the grads
-    and the update and holds the moments, as the JAX gate does; `active`
-    (0/1 tensor) skips the whole step, count included (the cooldown's
-    skipped actor step)."""
+    and the update and holds the moments by arithmetic, as the JAX gate
+    does; `active` (0/1 tensor) skips the whole step, count included, by
+    selection, as the JAX `lax.cond` skip does: non-finite grads of a
+    skipped step touch nothing (the cooldown's skipped actor and aux
+    steps)."""
 
     def __init__(self, lr: float, b1: float, b2: float = 0.999,
                  eps: float = 1e-8):
@@ -63,8 +71,7 @@ class Adam:
         st.count += 1.0 if active is None else active
         bc1 = 1.0 - torch.pow(b1, st.count)
         bc2 = 1.0 - torch.pow(b2, st.count)
-        if active is not None:
-            keep = active if keep is None else keep * active
+        on = None if active is None else active > 0
         for p, g, m, v in zip(params, grads, st.mu, st.nu):
             if keep is not None:
                 g = g * keep
@@ -75,6 +82,10 @@ class Adam:
                 m2 = keep * m2 + (1 - keep) * m
                 v2 = keep * v2 + (1 - keep) * v
                 u = u * keep
+            if on is not None:
+                m2 = torch.where(on, m2, m)
+                v2 = torch.where(on, v2, v)
+                u = torch.where(on, u, torch.zeros_like(u))
             m.copy_(m2)
             v.copy_(v2)
             p.add_(u)
@@ -95,6 +106,8 @@ class AgentState:
     gate_cooldown: Optional[torch.Tensor] = None  # int32, if configured
     gate_latch: Optional[torch.Tensor] = None     # int32, if configured
     burst_log: Optional[Dict[str, torch.Tensor]] = None
+    aux_params: Optional[nn.ModuleDict] = None    # algorithm-specific
+    aux_opt: Optional[AdamState] = None
 
 
 def _init_burst_log(batch_size: int, device):
@@ -170,7 +183,7 @@ class SAC:
         gen.manual_seed(seed)
         cfg, dev = self.cfg, self.device
         gate = cfg.td_anomaly_gate > 0
-        return AgentState(
+        state = AgentState(
             params=params, target_params=target,
             log_alpha=torch.log(torch.tensor(cfg.init_temperature,
                                              device=dev)),
@@ -185,10 +198,17 @@ class SAC:
             gate_latch=(torch.zeros((), dtype=torch.int32, device=dev)
                         if gate and cfg.td_gate_latch > 0 else None),
             burst_log=_init_burst_log(cfg.batch_size, dev) if gate else None)
+        return self.init_aux(state, seed)
+
+    def init_aux(self, state: AgentState, seed: int) -> AgentState:
+        return state
 
     # ---------------------------------------------------------- forward fns
-    def feats(self, params, obs):
-        return params["trunk"](obs.float())
+    def feats(self, params, obs, act=F.relu):
+        return params["trunk"](obs.float(), act)
+
+    def critic_forward(self, params, obs, action, act=F.relu):
+        return params["critic"](self.feats(params, obs, act), action, act)
 
     def policy_from_feats(self, params, feats, noise):
         """(mu, pi, log_pi, log_std) with squashing, for given noise."""
@@ -236,9 +256,14 @@ class SAC:
             target_q = torch.clamp(target_q, -c, c)
         return target_q
 
-    def critic_loss_fn(self, params, batch: Batch, target_q):
-        feats = self.feats(params, batch.obs)
-        q1, q2 = params["critic"](feats, batch.action)
+    def update_context(self, state: AgentState, batch: Batch, draws: Dict):
+        """Per-update precomputation shared by the critic and aux steps
+        (None for plain SAC)."""
+        return None
+
+    def critic_loss_fn(self, params, state: AgentState, batch: Batch,
+                       target_q, ctx=None, draws: Optional[Dict] = None):
+        q1, q2 = self.critic_forward(params, batch.obs, batch.action)
         loss = torch.mean((q1 - target_q) ** 2) + torch.mean((q2 - target_q) ** 2)
         return loss, {"critic_loss": loss.detach(),
                       **self._critic_diag(q1, q2, batch, target_q)}
@@ -250,24 +275,27 @@ class SAC:
                 "_td1": (q1 - target_q).reshape(-1),
                 "_td2": (q2 - target_q).reshape(-1)}
 
-    def critic_grads(self, state: AgentState, batch: Batch, target_q):
+    def critic_grads(self, state: AgentState, batch: Batch, target_q,
+                     ctx=None, draws: Optional[Dict] = None):
         """(loss, metrics, grads over trunk + critic params)."""
         params = _params(state.params["trunk"], state.params["critic"])
         with torch.enable_grad():
             for p in params:
                 p.requires_grad_(True)
             try:
-                loss, metrics = self.critic_loss_fn(state.params, batch,
-                                                    target_q)
+                loss, metrics = self.critic_loss_fn(
+                    state.params, state, batch, target_q, ctx, draws)
                 grads = torch.autograd.grad(loss, params)
             finally:
                 for p in params:
                     p.requires_grad_(False)
         return loss.detach(), metrics, list(grads)
 
-    def update_critic(self, state: AgentState, batch: Batch, noise):
+    def update_critic(self, state: AgentState, batch: Batch, noise,
+                      ctx=None, draws: Optional[Dict] = None):
         target_q = self.critic_target_values(state, batch, noise)
-        loss, metrics, grads = self.critic_grads(state, batch, target_q)
+        loss, metrics, grads = self.critic_grads(state, batch, target_q,
+                                                 ctx, draws)
         return self._apply_critic_grads(state, loss, grads, metrics)
 
     def _apply_critic_grads(self, state: AgentState, loss, grads, metrics):
@@ -351,7 +379,9 @@ class SAC:
                            active=active)
         a_loss, al_loss = a_loss.detach(), al_loss.detach()
         if active is not None:
-            a_loss, al_loss = a_loss * active, al_loss * active
+            zero = torch.zeros_like(a_loss)
+            a_loss = torch.where(active > 0, a_loss, zero)
+            al_loss = torch.where(active > 0, al_loss, zero)
         return state, {"actor_loss": a_loss, "alpha_loss": al_loss,
                        "alpha_value": torch.exp(state.log_alpha)}
 
@@ -383,18 +413,26 @@ class SAC:
         return diff / (norm + 1e-8)
 
     # ---------------------------------------------------------------- update
+    def update_aux(self, state: AgentState, batch: Batch, draws: Dict,
+                   ctx=None):
+        return state, {}
+
     def update(self, state: AgentState, rstate: ReplayState,
                buffer: ReplayBuffer, draws: Optional[Dict] = None):
-        """One SAC update. `draws` may inject "idx" (env_i, ep_i, s),
-        "crop_obs"/"crop_next" offsets, "target_noise" and "actor_noise"
-        (B, A); whatever is missing is drawn from `state.gen`."""
+        """One update: context → critic → actor (every actor_update_freq)
+        → targets (every critic_target_update_freq) → aux → step. `draws`
+        may inject "idx" (env_i, ep_i, s), "crop_obs"/"crop_next" offsets,
+        "target_noise" and "actor_noise" (B, A), and the algorithm's own
+        keys; whatever is missing is drawn from `state.gen`."""
         draws = draws or {}
         B, A = self.cfg.batch_size, self.action_dim
         batch = self.sample_batch(buffer, rstate, state, draws)
+        ctx = self.update_context(state, batch, draws)
         t_noise = draws.get("target_noise")
         if t_noise is None:
             t_noise = self._noise(state, (B, A))
-        state, c_metrics = self.update_critic(state, batch, t_noise)
+        state, c_metrics = self.update_critic(state, batch, t_noise, ctx,
+                                              draws)
         td1, td2 = c_metrics.pop("_td1"), c_metrics.pop("_td2")
         if state.burst_log is not None and td1.shape[0] == B:
             # snapshot the FIRST gate-flagged minibatch since the loop
@@ -428,6 +466,7 @@ class SAC:
                          "alpha_value": torch.exp(state.log_alpha)}
         if state.step % self.critic_target_update_freq == 0:
             state = self.soft_update_targets(state)
+        state, x_metrics = self.update_aux(state, batch, draws, ctx)
         state.step += 1
-        return state, {**c_metrics, **a_metrics,
+        return state, {**c_metrics, **a_metrics, **x_metrics,
                        "target_lag": self._target_lag(state)}

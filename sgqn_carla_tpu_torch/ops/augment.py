@@ -1,8 +1,11 @@
-"""Image crops on (B, C, H, W) batches.
+"""Image crops and overlays on (B, C, H, W) batches.
 
-Counterpart of `random_crop`, `crop_at` and `center_crop` in
-`sgqn_carla_tpu/ops/augment.py`. Offsets are drawn from a
-`torch.Generator`, or injected (tests feed the JAX draws).
+Counterpart of `random_crop`, `crop_at`, `center_crop`, `random_overlay`
+and `attribution_augmentation` in `sgqn_carla_tpu/ops/augment.py`.
+Offsets and pool indices are drawn from a `torch.Generator`, or injected
+(tests feed the JAX draws). An overlay pool whose images are not the batch's
+size (an external pool, resized in the JAX package) raises
+`NotImplementedError` (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -51,3 +54,42 @@ def center_crop(imgs: torch.Tensor, size: int = 84) -> torch.Tensor:
         return imgs
     p = (h - size) // 2
     return imgs[..., p:p + size, p:p + size]
+
+
+def _pool_images(gen: Optional[torch.Generator], pool: torch.Tensor,
+                 b: int, c: int, h: int, w: int,
+                 idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """b pool images (drawn or `idx`), tiled over the c // 3 frames."""
+    if idx is None:
+        idx = torch.randint(0, pool.shape[0], (b,), generator=gen,
+                            device=pool.device)
+    over = pool[idx.to(pool.device, torch.long)]
+    if tuple(over.shape[-2:]) != (h, w):
+        raise NotImplementedError(
+            f"overlay pool of {tuple(over.shape[-2:])} images on {(h, w)} "
+            "observations (resize): ROADMAP Queue 1 item 7, 'Remaining eval "
+            "and diagnostics'")
+    return over.repeat(1, c // 3, 1, 1)
+
+
+def random_overlay(gen: Optional[torch.Generator], imgs: torch.Tensor,
+                   pool: torch.Tensor, alpha_blending: float = 0.2,
+                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """α-blend with a random pool image, repeated over the frame stack.
+    imgs: (B, C, H, W) in [0, 255]; pool: (N, 3, H, W) float in [0, 1]."""
+    b, c, h, w = imgs.shape
+    over = _pool_images(gen, pool, b, c, h, w, idx)
+    x = imgs.float() / 255.0
+    return ((1.0 - alpha_blending) * x + alpha_blending * over) * 255.0
+
+
+def attribution_augmentation(gen: Optional[torch.Generator],
+                             imgs: torch.Tensor, mask: torch.Tensor,
+                             pool: torch.Tensor,
+                             idx: Optional[torch.Tensor] = None):
+    """Keep the salient pixels, fill the rest from a pool image:
+    s̃ = (x·m/255 + img·(1 − m))·255."""
+    b, c, h, w = imgs.shape
+    over = _pool_images(gen, pool, b, c, h, w, idx)
+    m = mask.float()
+    return (imgs.float() * m / 255.0 + over * (1.0 - m)) * 255.0

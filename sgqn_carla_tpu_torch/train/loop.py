@@ -2,8 +2,10 @@
 
 Counterpart of `run_training` in `sgqn_carla_tpu/train/loop.py`: work dir
 `logs/<domain>_<task>/<algo>/<seed>`, info.log, `train.log` JSONL in the
-same schema, lockstep episode resets, the init_steps catch-up burst and the
-TD gate's burst-log drain. `step` counts wrapper steps per env.
+same schema, lockstep episode resets, the init_steps catch-up burst, the
+TD gate's burst-log drain and, for sgsac, the attribution imagery every
+10,000 steps (`output/{original,augmented,super_augmented}/`). `step`
+counts wrapper steps per env.
 
 What this slice does not carry raises `NotImplementedError` naming its
 ROADMAP Queue 1 item, before any work starts: evaluation (`eval_mode`
@@ -25,11 +27,14 @@ import numpy as np
 import torch
 
 from sgqn_carla_tpu_torch.agents import make_agent
+from sgqn_carla_tpu_torch.agents.visualize import save_attribution_images
 from sgqn_carla_tpu_torch.core.config import Config, resolve_device
 from sgqn_carla_tpu_torch.core.logger import Logger
 from sgqn_carla_tpu_torch.data.replay import ReplayBuffer
 from sgqn_carla_tpu_torch.envs import make_env
 from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+from sgqn_carla_tpu_torch.ops import augment
+from sgqn_carla_tpu_torch.ops.guided_backprop import compute_attribution_mask
 from sgqn_carla_tpu_torch.train.fused import FusedTrainer
 
 # metric-name map: agent metrics → reference logger keys
@@ -40,6 +45,7 @@ _METRIC_KEYS = {
     "alpha_value": "train_alpha/value",
     "aux_loss": "train/aux_loss",
 }
+VIZ_EVERY = 10_000  # steps between SGQN attribution image sets
 
 
 def work_dir_for(cfg: Config) -> str:
@@ -110,6 +116,27 @@ def drain_burst_log(work_dir: str, astate, metrics: Dict, step: int):
     return astate
 
 
+def save_attribution_imagery(agent, astate, buffer, rstate, gen, cfg,
+                             work_dir: str, step: int):
+    """Image sets of 4 replay samples: the observations, the overlay view
+    s̃ and the attribution-augmented view s′."""
+    batch = buffer.sample_raw(rstate, gen, 4)
+    obs = augment.random_crop(gen, batch.obs, cfg.image_crop_size).float()
+    out_dir = os.path.join(work_dir, "output")
+    save_attribution_images(agent, astate, obs, batch.action, out_dir, step)
+    mask = compute_attribution_mask(
+        agent.attribution_grad(astate.params, obs, batch.action),
+        agent.quantile)
+    s_tilde = augment.random_overlay(gen, obs, agent.overlay_pool,
+                                     cfg.alpha_blending)
+    s_prime = augment.attribution_augmentation(gen, obs, mask,
+                                               agent.overlay_pool)
+    save_attribution_images(agent, astate, s_tilde, batch.action, out_dir,
+                            step, prefix="augmented")
+    save_attribution_images(agent, astate, s_prime, batch.action, out_dir,
+                            step, prefix="super_augmented")
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -159,6 +186,7 @@ def run_training(cfg: Config) -> Dict:
     start = time.time()
     last_metrics = {}
     caught_up = cfg.init_steps <= 0
+    next_viz = VIZ_EVERY
     while step < cfg.train_steps:
         length = min(ep_len, cfg.train_steps - step)
         t0 = time.time()
@@ -199,6 +227,11 @@ def run_training(cfg: Config) -> Dict:
         # reset all envs (lockstep episodes; DMC has no early termination)
         states, obs = venv.reset(gen)
         rstate = buffer.add_reset(rstate, obs)
+
+        if cfg.algorithm == "sgsac" and step >= next_viz and caught_up:
+            next_viz += VIZ_EVERY * ((step - next_viz) // VIZ_EVERY + 1)
+            save_attribution_imagery(agent, astate, buffer, rstate, gen, cfg,
+                                     work_dir, step)
 
     print("Completed training for", work_dir)
     return {"work_dir": work_dir, "episodes": episode,

@@ -254,3 +254,79 @@ def test_update_on_card_matches_cpu():
     for k in ("critic_loss", "actor_loss", "alpha_loss", "q1_mean"):
         assert abs(out[0][k] - out[1][k]) <= 1e-3 * max(abs(out[0][k]), 1e-3), (
             k, out[0][k], out[1][k])
+
+
+@pytest.mark.cuda
+def test_sgsac_update_on_card_matches_cpu():
+    """One small f32 sgsac update (11×8 trunk, hidden 32, batch 16) with the
+    same batch, noise, fill and overlay indices on the card and on the
+    CPU: the same losses within the SAC test's 1e-3 relative (TF32 off;
+    sums in another order; a mask pixel at the threshold may flip)."""
+    from sgqn_carla_tpu_torch.agents.sgsac import SGSAC
+    from sgqn_carla_tpu_torch.core.config import Config
+    from sgqn_carla_tpu_torch.data.overlay import synth_images
+    from sgqn_carla_tpu_torch.data.replay import ReplayBuffer
+
+    dev = _cuda()
+    rs = np.random.RandomState(2)
+    frames = rs.randint(0, 256, (6, 2, 9, 84, 84)).astype(np.uint8)
+    acts = rs.uniform(-1, 1, (5, 2, 6)).astype(np.float32)
+    draws = {"idx": tuple(torch.from_numpy(rs.randint(0, hi, 16))
+                          for hi in (2, 1, 5)),
+             "target_noise": torch.from_numpy(
+                 rs.normal(size=(16, 6)).astype(np.float32)),
+             "actor_noise": torch.from_numpy(
+                 rs.normal(size=(16, 6)).astype(np.float32)),
+             "fill": torch.tensor(0.3),
+             "overlay_idx": torch.from_numpy(rs.randint(0, 8, 16))}
+    pool = synth_images(8, 84, 84, seed=0)
+    out = []
+    for device in (torch.device("cpu"), dev):
+        cfg = Config(algorithm="sgsac", eval_mode="none", precision="f32",
+                     num_shared_layers=11, num_filters=8, hidden_dim=32,
+                     projection_dim=16, batch_size=16,
+                     device=str(device)).finalize()
+        agent = SGSAC((9, 84, 84), (6,), cfg, device=device,
+                      overlay_pool=pool)
+        st = agent.init_state(0)
+        buf = ReplayBuffer(num_envs=2, episode_len=5, capacity=20,
+                           image_size=84, action_size=6, batch_size=16,
+                           device=device)
+        r = buf.add_reset(buf.init(), torch.from_numpy(frames[0]).to(device))
+        for t in range(5):
+            r = buf.add(r, torch.from_numpy(acts[t]).to(device),
+                        torch.full((2,), 0.5, device=device),
+                        torch.from_numpy(frames[t + 1]).to(device))
+        st, m = agent.update(st, r, buf, draws={
+            k: (tuple(x.to(device) for x in v) if isinstance(v, tuple)
+                else v.to(device)) for k, v in draws.items()})
+        assert st.aux_params["decoder"].conv3.weight.device.type == \
+            device.type
+        out.append({k: float(v) for k, v in m.items()})
+    assert out[0]["aux_loss"] > 0
+    for k in ("critic_loss", "actor_loss", "alpha_loss", "aux_loss",
+              "q1_mean"):
+        assert abs(out[0][k] - out[1][k]) <= 1e-3 * max(abs(out[0][k]), 1e-3), (
+            k, out[0][k], out[1][k])
+
+
+@pytest.mark.cuda
+def test_row_quantile_on_card_bit_identical_to_cpu():
+    """The exact row quantile at the update's (3·128, 84·84) shape, with
+    ties and zero plateaus, and the mask it makes: the card's `topk`
+    returns the same order statistics as the CPU's, bit for bit."""
+    from sgqn_carla_tpu_torch.ops import guided_backprop as gb
+
+    dev = _cuda()
+    rs = np.random.RandomState(3)
+    x = rs.exponential(size=(384, 7056)).astype(np.float32)
+    x[::3, :5000] = 0.0
+    x[1::3] = np.round(x[1::3] * 4) / 4
+    xc = torch.from_numpy(x)
+    for q in (0.9, 0.95, 0.98):
+        a = gb._row_quantile(xc, q)
+        b = gb._row_quantile(xc.to(dev), q).cpu()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), q
+    g = torch.from_numpy(rs.normal(size=(128, 9, 84, 84)).astype(np.float32))
+    assert torch.equal(gb.compute_attribution_mask(g, 0.95),
+                       gb.compute_attribution_mask(g.to(dev), 0.95).cpu())
