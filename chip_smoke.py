@@ -15,8 +15,10 @@ Phases, each printing one JSON line:
               one must match its plain PyTorch version: seg mismatches ≤ 5
               pixels per frame; on seg-agreeing pixels ≤ 10 pixels off by
               > 2 levels and none by > 32. CUDA-event times per call over 20
-              back-to-back calls and the profiler's device time of each
-              instantiation (in turns: culled, unculled, unculled, culled)
+              back-to-back calls, and the device time of each
+              instantiation: the same 20 calls queued behind a spin kernel
+              so that the host's launch time drops out (in turns: culled,
+              unculled, unculled, culled)
               beside two bounds: the operations these inputs need
               (`raycast.ops_needed`) or the bytes, and the unculled count.
               Then a camera inside a bounding sphere (bit identity and the
@@ -105,11 +107,38 @@ Phases, each printing one JSON line:
               rewards, the kernel launched, envs built from the tree),
               and two full-width SGQN updates with a 64-px pool from the
               tree (the pool resize on the card)
- 10. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
+ 10. dmcgb_domains  cartpole-swingup, reacher-easy, cheetah-run,
+              finger-spin and ball_in_cup-catch at 16 envs and 84 px: reset
+              and 5 random wrapper steps (finite rewards and state, one
+              kernel launch per render), the env step's ms, its physics /
+              rewards / render split, eager ops and device idle share;
+              the kernel on each posed scene (box, cylinder and sphere
+              geoms, fixed cameras, render overrides) against the plain
+              version at the kernel phase's bounds, culled and unculled
+              bit-identical, with times and bound as in the kernel
+              phase; then the six golden
+              MuJoCo trajectories (cartpole balance and swingup,
+              reacher, cheetah, finger, ball_in_cup) on the card with
+              TF32 off, at tests/test_parity.py's bounds
+     cartpole_trainer  train --domain_name cartpole --task_name swingup
+              --algorithm sgsac at the TPU record's arguments (8 envs,
+              full width, quantile 0.98) at the same schedule: video_hard
+              evaluated at S2 with the 448-px recording, saves with the
+              ring at S1 and S2, resume/S2 restored into fresh objects bit
+              for bit, a second call that resumes to S3
+     distracting_cs_dmcgb  train.eval on distracting_cs (intensity 0.1)
+              for ball_in_cup and reacher with a full-width agent's random
+              weights saved as the checkpoint, and the composited kernel
+              frames of a reset against the plain version (6 envs at 84
+              px; env 0 at 448 px, with the plain version's float64
+              evaluation as the witness for coincident capsule end caps:
+              kernel_checks.compare_with_exact)
+ 11. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
      offline_eval, algorithms, pad_trainer, pad_offline_eval,
-     external_data), then the card's nvidia-smi line, then {"ok": true,
-     "device": {...}} as the last line. The work dir
-     build/chip_smoke_logs/ is emptied first.
+     external_data, dmcgb_domains, cartpole_trainer,
+     distracting_cs_dmcgb; the kernel's times on each DMCGB scene), then
+     the card's nvidia-smi line, then {"ok": true, "device": {...}} as
+     the last line. The work dir build/chip_smoke_logs/ is emptied first.
 
 It imports torch and the port only. It exits non-zero, before printing any
 result, without a CUDA device or outside a checkout of the repository; any
@@ -141,7 +170,63 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def _idle(busy, ms):
+    """The device's idle share of `ms` with `busy` ms of kernels; None
+    where busy was not measured."""
+    return None if busy is None else 1 - busy / ms
+
+
 SHAPES = ((16, 84), (16, 100), (64, 84), (768, 84), (1, 448))
+
+
+def kernel_row(raycast, kc, m, params, fovy, size):
+    """Both instantiations on the packed scenes `params` at `size` px:
+    bit identity, the culled one against the plain version, CUDA-event
+    and device times, the plain version's time and the bounds."""
+    import torch
+
+    E = params.shape[0]
+    fpr = raycast.flops_per_ray(m)
+    pdim = raycast._offsets(len(m.geoms))["pdim"]
+    run = lambda cull: raycast._launch(m, params, fovy, size, size, True,
+                                       cull=cull)
+    k, ku = run(True), run(False)
+    r = raycast._render_packed_ref(m, params, fovy, size, size)
+    torch.cuda.synchronize()
+    identical = kc.same_bits(k, ku)
+    ok, cmp = kc.compare_frames(k, r)
+    ms = kc.cuda_ms(lambda: run(True))
+    ms_u = kc.cuda_ms(lambda: run(False))
+    # the kernels' own durations on the device (20 calls queued behind a
+    # spin kernel), in turns
+    dev = {True: [], False: []}
+    for cull in (True, False, False, True):
+        dev[cull].append(kc.queued_ms(lambda: run(cull)))
+    device_ms = statistics.mean(dev[True])
+    device_ms_u = statistics.mean(dev[False])
+    plain_ms = kc.cuda_ms(lambda: raycast._render_packed_ref(
+        m, params, fovy, size, size), reps=20 if E <= 64 else 5)
+    P = size * size
+    ops = raycast.ops_needed(m, params, fovy, size, size)
+    t_bytes = (E * pdim * 4 + E * P * (12 + 4 + 4)) / PEAK_BYTES
+    t_ops, t_ops_u = ops / PEAK_FP32, E * P * fpr / PEAK_FP32
+    segs = sorted(torch.unique(k[1]).tolist())
+    return {
+        "E": E, "size": size, "ok": ok and identical, "identical": identical,
+        **cmp, "seg_ids_drawn": segs,
+        "kernel_ms": ms, "kernel_ms_unculled": ms_u,
+        "kernel_device_ms": device_ms,
+        "kernel_device_ms_unculled": device_ms_u,
+        "device_ms_runs": dev[True], "device_ms_unculled_runs": dev[False],
+        "plain_ms": plain_ms,
+        "ops_per_ray_needed": ops / (E * P), "flops_per_ray_unculled": fpr,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_unculled_ms": max(t_ops_u, t_bytes) * 1e3,
+        "bound_unculled_by": ("operations" if t_ops_u >= t_bytes
+                              else "bytes"),
+        "share_of_bound": max(t_ops, t_bytes) * 1e3 / device_ms,
+        "share_of_bound_unculled": max(t_ops_u, t_bytes) * 1e3 / device_ms_u}
 
 
 def kernel_phase(raycast, kc):
@@ -153,49 +238,11 @@ def kernel_phase(raycast, kc):
     ok_all = True
     m, base = kc.walker_scenes(64, seed=0)
     fovy = base[5]
-    fpr = raycast.flops_per_ray(m)
-    pdim = raycast._offsets(len(m.geoms))["pdim"]
     for E, size in SHAPES:
-        params = kc.batch_params(base, E)
-        run = lambda cull, p=params: raycast._launch(
-            m, p, fovy, size, size, True, cull=cull)
-        k, ku = run(True), run(False)
-        r = raycast._render_packed_ref(m, params, fovy, size, size)
-        torch.cuda.synchronize()
-        identical = kc.same_bits(k, ku)
-        ok, cmp = kc.compare_frames(k, r)
-        ok_all &= ok and identical
-        ms = kc.cuda_ms(lambda: run(True))
-        ms_u = kc.cuda_ms(lambda: run(False))
-        # the kernels' own durations on the device (profiler, one kernel
-        # per call), in turns
-        dev = {True: [], False: []}
-        for cull in (True, False, False, True):
-            dev[cull].append(kc.profiled(lambda: run(cull), 20)[1])
-        device_ms = statistics.mean(dev[True])
-        device_ms_u = statistics.mean(dev[False])
-        plain_ms = kc.cuda_ms(lambda: raycast._render_packed_ref(
-            m, params, fovy, size, size), reps=20 if E <= 64 else 5)
-        P = size * size
-        ops = raycast.ops_needed(m, params, fovy, size, size)
-        t_bytes = (E * pdim * 4 + E * P * (12 + 4 + 4)) / PEAK_BYTES
-        t_ops, t_ops_u = ops / PEAK_FP32, E * P * fpr / PEAK_FP32
-        rows.append({
-            "E": E, "size": size, "ok": ok, "identical": identical, **cmp,
-            "kernel_ms": ms, "kernel_ms_unculled": ms_u,
-            "kernel_device_ms": device_ms,
-            "kernel_device_ms_unculled": device_ms_u,
-            "device_ms_runs": dev[True], "device_ms_unculled_runs": dev[False],
-            "plain_ms": plain_ms,
-            "ops_per_ray_needed": ops / (E * P), "flops_per_ray_unculled": fpr,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_unculled_ms": max(t_ops_u, t_bytes) * 1e3,
-            "bound_unculled_by": ("operations" if t_ops_u >= t_bytes
-                                  else "bytes"),
-            "share_of_bound": max(t_ops, t_bytes) * 1e3 / device_ms,
-            "share_of_bound_unculled": (
-                max(t_ops_u, t_bytes) * 1e3 / device_ms_u)})
+        row = kernel_row(raycast, kc, m, kc.batch_params(base, E), fovy,
+                         size)
+        ok_all &= row["ok"]
+        rows.append(row)
 
     # camera inside a capsule's bounding sphere: no ray is culled there
     params = kc.camera_inside_torso_sphere(m, kc.batch_params(base, 16))
@@ -395,7 +442,7 @@ def sgsac_profile_phase(cfg, out, smi, kc):
     emit({"phase": "sgsac_update_profile", "ok": ok, "card": smi,
           "batch_size": cfg.batch_size, "ms_per_update": ms_upd,
           "profiled_ms_per_update": wall, "device_busy_ms": busy,
-          "device_idle_share": 1 - busy / ms_upd, "top_kernels_ms": top,
+          "device_idle_share": _idle(busy, ms_upd), "top_kernels_ms": top,
           "mask_pixel_share": share, "mask_step_ms": mask_ms,
           "row_quantile_shape": list(attr.shape), "row_quantile_ms": q_ms,
           "torch_quantile_ms": lib_ms,
@@ -649,7 +696,7 @@ def algorithms_phase(cfg, smi, raycast, kc):
                      "aux_loss_nonzero_once": aux_ok, "trunk_moved": moved,
                      "state_on_cuda": on_cuda, "image_size": c.image_size,
                      "ms_per_update": ms_upd, "device_busy_ms": busy,
-                     "device_idle_share": 1 - busy / ms_upd,
+                     "device_idle_share": _idle(busy, ms_upd),
                      "top_kernels_ms": top,
                      "last_losses": {k: v[-1] for k, v in vals.items()
                                      if k.endswith("loss")}}
@@ -775,7 +822,7 @@ def pad_offline_eval_phase(cfg, smi, raycast):
 
 
 # ---- the CARLA twin and the external-data readers
-CARLA_E = 8  # the TPU record's env count
+RECORD_E = 8  # the env count of the TPU records (CARLA, cartpole)
 
 
 def _count_ops(fn) -> int:
@@ -800,7 +847,7 @@ def _count_ops(fn) -> int:
 
 
 def carla_env_split(env, blend_env, states, kc):
-    """Where a CARLA env step's time goes at CARLA_E envs: ms of the whole
+    """Where a CARLA env step's time goes at RECORD_E envs: ms of the whole
     step, of its dynamics (action_repeat substeps), of the scene render,
     of the weather pass on the rendered frames and of the color_easy
     blend (on `blend_env`), each the median of 3; the device-busy share of
@@ -842,28 +889,13 @@ def carla_env_split(env, blend_env, states, kc):
     wall, busy, top = kc.profiled(step, 3)
     return {"ms_per_env_step": parts["step"], "breakdown_ms": parts,
             "device_busy_ms": busy,
-            "device_idle_share": 1 - busy / parts["step"],
+            "device_idle_share": _idle(busy, parts["step"]),
             "top_kernels_ms": top,
             "eager_ops_per_env_step": _count_ops(step),
             "eager_ops": {"dynamics": _count_ops(dynamics),
                           "render": _count_ops(scene),
                           "weather": _count_ops(weather),
                           "blend": _count_ops(blend)}}
-
-
-def carla_argv(cfg, log_dir, **kw):
-    """train_carla's command line at chip_smoke's widths."""
-    args = {"algorithm": "sgsac", "num_shared_layers": 11,
-            "num_filters": 32, "hidden_dim": 1024, "projection_dim": 100,
-            "batch_size": 128, "precision": "bf16", "num_envs": CARLA_E,
-            "episode_length": 4 * EP, "init_steps": S1, "train_steps": S2,
-            "eval_mode": "color_easy", "eval_freq": S2, "save_freq": S1,
-            "eval_episodes": cfg.eval_episodes, "seed": 0,
-            "log_dir": log_dir, "device": DEV, **kw}
-    argv = []
-    for k, v in args.items():
-        argv += [f"--{k}", str(v)]
-    return argv + ["--checkpoint_replay", "--save_video", "--resume"]
 
 
 def carla_trainer_phase(cfg, smi, kc):
@@ -875,17 +907,11 @@ def carla_trainer_phase(cfg, smi, kc):
     resumes at S2 and trains to S3. Prints the env step's time split,
     idle share and eager ops, env steps/s, updates/s and the eval's
     seconds."""
-    import contextlib
-    import io
-
     import numpy as np
     import torch
 
-    from sgqn_carla_tpu_torch.agents import make_agent
-    from sgqn_carla_tpu_torch.core import checkpoint as ckpt
     from sgqn_carla_tpu_torch.core.config import parse_args
     from sgqn_carla_tpu_torch.envs.carla_twin import CarlaState, make_carla_env
-    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
     from sgqn_carla_tpu_torch.train import loop
     from sgqn_carla_tpu_torch.train import train_carla
 
@@ -905,7 +931,7 @@ def carla_trainer_phase(cfg, smi, kc):
     aux_nonzero = any(r["aux_loss"] != 0.0 for r in upd)
     states, obs = out["env_state"]
     obs_ok = (isinstance(states, CarlaState) and obs.device.type == DEV
-              and tuple(obs.shape) == (CARLA_E, 9, 84, 84)
+              and tuple(obs.shape) == (RECORD_E, 9, 84, 84)
               and obs.dtype == torch.uint8)
     train_keys = {"episode_reward", "episode", "duration", "step"}
     schema_ok = (all(train_keys <= set(r) for r in rows)
@@ -922,21 +948,8 @@ def carla_trainer_phase(cfg, smi, kc):
     run_cfg = parse_args(carla_argv(cfg, log_dir)).replace(
         domain_name="carla", task_name="drive")
     dev = torch.device(DEV)
-    env = make_carla_env(image_size=84, episode_length=4 * EP, seed=1,
-                         device=DEV)
-    buf = loop.make_buffer(run_cfg, env, dev)
-    agent = make_agent((9, 84, 84), (2,), run_cfg, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    s2, o2 = VectorEnv(env, CARLA_E).reset(gen)
-    like = loop.loop_state(agent.init_state(1), gen, replay=(
-        s2, o2, buf.add_reset(buf.init(), o2)))
-    torch.cuda.synchronize()
-    t0 = time.time()
-    restored = ckpt.restore(os.path.join(wd, "resume"), S2, like)
-    restore_s = time.time() - t0
-    final = loop.loop_state(st, out["gen"], **out["counters"],
-                            replay=(states, obs, out["replay"][1]))
-    differ = _differing_leaves(restored, final)
+    differ, restore_s, restored = restore_check(run_cfg, out,
+                                                make_carla_env)
     on_card = _on_cuda(st) and restored["states"].gen.device.type == DEV
     # the env step's split, on the trained run's env states
     split = carla_env_split(
@@ -944,22 +957,15 @@ def carla_trainer_phase(cfg, smi, kc):
         loop.make_run_env(run_cfg, dev, "color_easy", env_factory=make_carla_env),
         states, kc)
     # a second call resumes at S2 and trains to S3
-    text = io.StringIO()
-    with contextlib.redirect_stdout(text):
-        out2 = train_carla.main(carla_argv(cfg, log_dir, train_steps=S3))
-    sys.stdout.write(text.getvalue())
-    said = f"Resumed from {os.path.join(wd, 'resume')} at step {S2}" in \
-        text.getvalue()
-    with open(os.path.join(wd, "train.log")) as f:
-        last = [json.loads(line) for line in f][-1]
+    resumed, last = resumed_call(train_carla.main,
+                                 carla_argv(cfg, log_dir, train_steps=S3), wd)
     ev = tm["eval"]
     ok = (finite and aux_nonzero and obs_ok and schema_ok and video_ok
-          and on_card and not differ and said and out2["resumed_at"] == S2
-          and last["step"] == S3
+          and on_card and not differ and resumed
           and all(_finite(last[k]) for k in losses))
     emit({"phase": "carla_trainer", "ok": ok, "card": smi,
           "phase_s": time.time() - start,
-          "config": {"algorithm": "sgsac", "num_envs": CARLA_E,
+          "config": {"algorithm": "sgsac", "num_envs": RECORD_E,
                      "episode_length": 4 * EP, "init_steps": S1,
                      "train_steps": S2, "eval_mode": "color_easy",
                      "trunk": "11x32 bf16", "hidden_dim": 1024,
@@ -970,9 +976,9 @@ def carla_trainer_phase(cfg, smi, kc):
           "state_on_cuda": on_card, "resume_bit_identical": not differ,
           "differing_leaves": differ[:10], "restore_s": restore_s,
           "resume_bytes": tm["resume_bytes"],
-          "printed_resumed": said, "resumed_final_row": last,
+          "resumed_to_S3": resumed, "resumed_final_row": last,
           "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
-          "env_steps_per_s": (tm["random_steps"] * CARLA_E
+          "env_steps_per_s": (tm["random_steps"] * RECORD_E
                               / max(tm["random_s"], 1e-9)),
           "update_chunk_s": tm["update_chunk_s"],
           "update_chunk_ms_per_wrapper_step": (
@@ -997,15 +1003,15 @@ def carla_render_phase(smi, kc):
     envs = {d: make_carla_env(image_size=84, seed=0, device=d)
             for d in (DEV, "cpu")}
     g = torch.Generator(device="cpu").manual_seed(5)
-    draws = {"ang": torch.rand(CARLA_E, generator=g) * 6.28,
-             "traffic": torch.rand((CARLA_E, 8), generator=g) * 6.28}
-    states = {d: e.reset(None, CARLA_E, **{k: v.to(d) for k, v in
+    draws = {"ang": torch.rand(RECORD_E, generator=g) * 6.28,
+             "traffic": torch.rand((RECORD_E, 8), generator=g) * 6.28}
+    states = {d: e.reset(None, RECORD_E, **{k: v.to(d) for k, v in
                                            draws.items()})[0]
               for d, e in envs.items()}
     ok, res = True, {}
     for storm_t in (-50.0, 40.0):
         for size, sl in ((84, slice(None)), (448, slice(0, 1))):
-            n = CARLA_E if size == 84 else 1
+            n = RECORD_E if size == 84 else 1
             noise = torch.rand((n, size, size), generator=g)
             out = {}
             for d, e in envs.items():
@@ -1168,6 +1174,337 @@ def external_data_phase(cfg, smi, raycast):
     return ok, launches
 
 
+# ---- the DMCGB domains
+DMCGB = (("cartpole", "swingup"), ("reacher", "easy"), ("cheetah", "run"),
+         ("finger", "spin"), ("ball_in_cup", "catch"))
+GOLDENS = (("cartpole", "balance"), ("cartpole", "swingup"),
+           ("reacher", "easy"), ("cheetah", "run"), ("finger", "spin"),
+           ("ball_in_cup", "catch"))
+
+
+def _timed_ms(fn, n=1):
+    """Median wall ms of n calls of fn(), the card synchronised."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.time() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def domain_row(domain, task, raycast, kc, E=16, steps=5):
+    """One domain at E envs and 84 px: reset and `steps` random wrapper
+    steps (finite rewards and state), the env step's time and its split,
+    eager ops and device idle share, then the kernel on the posed scene
+    (render overrides applied) against the plain version, culled against
+    unculled, with its times and bound. Returns (ok, row, launches of the
+    reset and the steps)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.envs import make_env
+    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+
+    env = make_env(domain, task, image_size=84, episode_length=1000,
+                   device=DEV)
+    venv = VectorEnv(env, E)
+    g = torch.Generator(DEV).manual_seed(11)
+    raycast.launches = 0
+    t0 = time.time()
+    states, obs = venv.reset(g)
+    torch.cuda.synchronize()
+    reset_s = time.time() - t0
+    step_ms, rewards = [], []
+    for _ in range(steps):
+        a = torch.rand((E, env.action_size), generator=g, device=DEV) * 2 - 1
+        torch.cuda.synchronize()
+        t0 = time.time()
+        states, res = venv.step(states, a)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        rewards.append(res.reward)
+    launches = raycast.launches
+    rew = torch.stack(rewards)
+    finite = bool(torch.isfinite(rew).all()
+                  and torch.isfinite(states.phys.qpos).all()
+                  and torch.isfinite(states.phys.qvel).all())
+    phys = states.phys
+    physics = lambda: [env.task.step(phys, a)
+                       for _ in range(env.action_repeat)]
+    reward = lambda: [env.task.reward(phys, a)
+                      for _ in range(env.action_repeat)]
+    render = lambda: env._render_frame(states)
+    parts = {"physics": _timed_ms(physics), "rewards": _timed_ms(reward),
+             "render": _timed_ms(render)}
+    ms = statistics.median(step_ms)
+    _, busy, top = kc.profiled(lambda: env.step(states, a), 1)
+    ops = {"env_step": _count_ops(lambda: env.step(states, a)),
+           "physics": _count_ops(physics), "rewards": _count_ops(reward),
+           "render": _count_ops(render)}
+    scene = env.scene(states)
+    params = raycast._pack_params(scene["Rg"], scene["pg"], scene["app"],
+                                  scene["cam_pos"], scene["cam_R"])
+    krow = kernel_row(raycast, kc, env.task.model, params, scene["fovy"], 84)
+    ok = (finite and tuple(obs.shape) == (E, 9, 84, 84)
+          and launches == 1 + steps and krow["ok"])
+    return ok, {
+        "ok": ok, "finite": finite, "num_envs": E, "reset_s": reset_s,
+        "substeps_per_env_step": env.task.n_sub_steps * env.action_repeat,
+        "ms_per_env_step": ms, "env_step_ms_runs": step_ms,
+        "breakdown_ms": parts, "device_busy_ms": busy,
+        "device_idle_share": _idle(busy, ms), "top_kernels_ms": top,
+        "eager_ops": ops, "kernel_launches": launches,
+        "reward_mean": float(rew.mean()), "kernel": krow}, launches
+
+
+def dmcgb_domains_phase(smi, raycast, kc):
+    """The five DMCGB domains (domain_row each), then the golden MuJoCo
+    trajectories on the card (TF32 off) at tests/test_parity.py's bounds.
+    Returns (ok, rows, kernel launches)."""
+    from sgqn_carla_tpu_torch.physics import golden_replay
+
+    start = time.time()
+    ok, rows, launches = True, {}, 0
+    for domain, task in DMCGB:
+        t0 = time.time()
+        good, row, n = domain_row(domain, task, raycast, kc)
+        row["phase_s"] = time.time() - t0
+        ok &= good
+        launches += n
+        rows[f"{domain}_{task}"] = row
+    goldens = {}
+    for domain, task in GOLDENS:
+        t0 = time.time()
+        res = golden_replay.replay(domain, task, os.path.join(
+            REPO, "tests", "golden", f"{domain}_{task}.npz"), device=DEV)
+        res["seconds"] = time.time() - t0
+        ok &= res["ok"]
+        goldens[f"{domain}_{task}"] = res
+    emit({"phase": "dmcgb_domains", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "domains": rows,
+          "golden_trajectories": goldens})
+    return ok, rows, launches
+
+
+def trainer_argv(cfg, log_dir, **kw):
+    """The training CLI's command line at chip_smoke's depth: sgsac at the
+    published widths, saves with the ring at S1 and S2, eval at S2."""
+    args = {"algorithm": "sgsac", "num_shared_layers": 11,
+            "num_filters": 32, "hidden_dim": 1024, "projection_dim": 100,
+            "batch_size": 128, "precision": "bf16", "num_envs": RECORD_E,
+            "episode_length": 4 * EP, "init_steps": S1, "train_steps": S2,
+            "eval_freq": S2, "save_freq": S1,
+            "eval_episodes": cfg.eval_episodes, "seed": 0,
+            "log_dir": log_dir, "device": DEV, **kw}
+    argv = []
+    for k, v in args.items():
+        argv += [f"--{k}", str(v)]
+    return argv + ["--checkpoint_replay", "--save_video", "--resume"]
+
+
+def carla_argv(cfg, log_dir, **kw):
+    """train_carla's command line at chip_smoke's widths."""
+    return trainer_argv(cfg, log_dir, **{"eval_mode": "color_easy", **kw})
+
+
+def restore_check(run_cfg, out, env_factory):
+    """resume/S2 of a CLI run restored into fresh objects made from
+    another seed, against the run's final state: (differing leaves,
+    restore seconds, the restored tree)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.agents import make_agent
+    from sgqn_carla_tpu_torch.core import checkpoint as ckpt
+    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+    from sgqn_carla_tpu_torch.train import loop
+
+    dev = torch.device(DEV)
+    env = loop.make_run_env(run_cfg, dev, seed=run_cfg.seed + 1,
+                            env_factory=env_factory)
+    buf = loop.make_buffer(run_cfg, env, dev)
+    agent = make_agent((3 * run_cfg.frame_stack, run_cfg.image_crop_size,
+                        run_cfg.image_crop_size), (env.action_size,),
+                       run_cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(run_cfg.seed + 1)
+    s2, o2 = VectorEnv(env, run_cfg.num_envs).reset(gen)
+    like = loop.loop_state(agent.init_state(run_cfg.seed + 1), gen, replay=(
+        s2, o2, buf.add_reset(buf.init(), o2)))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    restored = ckpt.restore(os.path.join(out["work_dir"], "resume"), S2,
+                            like)
+    restore_s = time.time() - t0
+    states, obs = out["env_state"]
+    final = loop.loop_state(out["agent_state"], out["gen"], **out["counters"],
+                            replay=(states, obs, out["replay"][1]))
+    return _differing_leaves(restored, final), restore_s, restored
+
+
+def resumed_call(main_fn, argv, wd):
+    """A second CLI call to S3: (printed "Resumed from ... at step S2",
+    its output, the last train.log row)."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out2 = main_fn(argv)
+    sys.stdout.write(text.getvalue())
+    said = f"Resumed from {os.path.join(wd, 'resume')} at step {S2}" in \
+        text.getvalue()
+    with open(os.path.join(wd, "train.log")) as f:
+        last = [json.loads(line) for line in f][-1]
+    return said and out2["resumed_at"] == S2 and last["step"] == S3, last
+
+
+def cartpole_trainer_phase(cfg, smi, raycast):
+    """`train --domain_name cartpole --task_name swingup --algorithm sgsac`
+    at the TPU record's arguments (artifacts/cartpole_swingup_sgsac_tpu/
+    info.log: 8 envs, 11×32 bf16 trunk, hidden 1024, batch 128, quantile
+    0.98, eval on video_hard), cut to episodes of EP wrapper steps: saves
+    with the ring at S1 and S2, video_hard evaluated at S2 with the 448-px
+    recording; resume/S2 restored into fresh objects bit for bit; a second
+    call resumes at S2 and trains to S3. Returns (ok, kernel launches of
+    training and eval)."""
+    import numpy as np
+
+    from sgqn_carla_tpu_torch.core.config import parse_args
+    from sgqn_carla_tpu_torch.envs import make_env
+    from sgqn_carla_tpu_torch.train import train as train_cli
+
+    start = time.time()
+    log_dir = os.path.join(cfg.log_dir, "cartpole")
+    cp_argv = lambda **kw: trainer_argv(
+        cfg, log_dir, domain_name="cartpole", task_name="swingup",
+        eval_mode="video_hard", sgqn_quantile=0.98, **kw)
+    argv = cp_argv()
+    raycast.launches = 0
+    t0 = time.time()
+    out = train_cli.main(argv)
+    train_s = time.time() - t0
+    launches = raycast.launches
+    wd, tm, st = out["work_dir"], out["timing"], out["agent_state"]
+    with open(os.path.join(wd, "train.log")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(wd, "eval.log")) as f:
+        erows = [json.loads(line) for line in f]
+    losses = ("critic_loss", "actor_loss", "alpha_loss", "aux_loss")
+    upd = [r for r in rows if "critic_loss" in r]
+    finite = bool(upd) and all(_finite(r[k]) for r in upd for k in losses)
+    aux_nonzero = any(r["aux_loss"] != 0.0 for r in upd)
+    eval_ok = ([set(r) for r in erows] == [{
+        "step", "episode_reward", "episode_reward_test_env_video_hard"}]
+        and all(_finite(v) for v in erows[0].values()))
+    frames = np.load(os.path.join(wd, "video", f"{S2}.npy"))
+    video_ok = (frames.shape == (EP, 448, 448, 3) and frames.dtype == np.uint8
+                and bool(frames.std() > 0))
+    ev = tm["eval"]
+    differ, restore_s, _ = restore_check(parse_args(argv), out, make_env)
+    resumed, last = resumed_call(train_cli.main, cp_argv(train_steps=S3),
+                                 wd)
+    ok = (finite and aux_nonzero and eval_ok and video_ok and _on_cuda(st)
+          and not differ and resumed and launches > 0
+          and all(e["launches"] > 0 for e in ev.values())
+          and all(_finite(last[k]) for k in losses))
+    emit({"phase": "cartpole_trainer", "ok": ok, "card": smi,
+          "phase_s": time.time() - start,
+          "config": {"domain": "cartpole_swingup", "algorithm": "sgsac",
+                     "num_envs": RECORD_E, "episode_length": 4 * EP,
+                     "init_steps": S1, "train_steps": S2,
+                     "eval_mode": "video_hard", "trunk": "11x32 bf16",
+                     "hidden_dim": 1024, "batch_size": 128,
+                     "sgqn_quantile": 0.98},
+          "seconds": train_s, "episodes": out["episodes"],
+          "losses_finite": finite, "aux_loss_nonzero_once": aux_nonzero,
+          "eval_ok": eval_ok, "video_ok": video_ok,
+          "resume_bit_identical": not differ, "differing_leaves": differ[:10],
+          "restore_s": restore_s, "resume_bytes": tm["resume_bytes"],
+          "resumed_to_S3": resumed, "resumed_final_row": last,
+          "kernel_launches": launches,
+          "eval_launches_by_mode": {m: e["launches"] for m, e in ev.items()},
+          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "env_steps_per_s": (tm["random_steps"] * RECORD_E
+                              / max(tm["random_s"], 1e-9)),
+          "update_chunk_ms_per_wrapper_step": (
+              1e3 * tm["update_chunk_s"] / max(tm["update_chunk_steps"], 1)),
+          "eval_s_by_mode": {m: e["s"] for m, e in ev.items()},
+          "eval_log": erows,
+          "episode_rewards": [r["episode_reward"] for r in rows]})
+    return ok, launches
+
+
+def distracting_dmcgb_phase(cfg, smi, raycast, kc):
+    """distracting_cs at intensity 0.1 on ball_in_cup and reacher: one
+    offline eval round (`train.eval`, eval_episodes envs) of a full-width
+    sgsac agent whose random weights (seed 0) are saved as the run's
+    checkpoint, then the composited kernel frames of a reset against the
+    plain version: 6 envs at 84 px at the kernel phase's bounds, env 0 at
+    448 px by `kernel_checks.compare_with_exact` (the joined thin capsules'
+    coincident end caps have no f32-exact seg). Returns (ok, kernel
+    launches of the evals)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.agents import make_agent
+    from sgqn_carla_tpu_torch.core import checkpoint as ckpt
+    from sgqn_carla_tpu_torch.core.config import parse_args
+    from sgqn_carla_tpu_torch.envs.base import env_slice
+    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+    from sgqn_carla_tpu_torch.train import eval as eval_cli
+    from sgqn_carla_tpu_torch.train import loop
+
+    start = time.time()
+    dev = torch.device(DEV)
+    ok, res, launches = True, {}, 0
+    for domain, task in (("ball_in_cup", "catch"), ("reacher", "easy")):
+        argv = ["--domain_name", domain, "--task_name", task,
+                "--algorithm", "sgsac", "--train_steps", str(S2),
+                "--device", DEV, "--eval_mode", "distracting_cs",
+                "--distracting_cs_intensity", "0.1"]
+        for k in ("episode_length", "seed", "log_dir", "eval_episodes",
+                  "num_shared_layers", "num_filters", "hidden_dim",
+                  "projection_dim", "precision"):
+            argv += [f"--{k}", str(getattr(cfg, k))]
+        c = parse_args(argv)
+        env = loop.make_run_env(c, dev, "distracting_cs", c.seed + 42)
+        agent = make_agent((9, 84, 84), (env.action_size,), c, device=dev)
+        wd = loop.work_dir_for(c)
+        ckpt.save(os.path.join(wd, "model"),
+                  loop.weights_tree(agent.init_state(c.seed)), S2)
+        raycast.launches = 0
+        t0 = time.time()
+        eval_cli.main(argv)
+        s = time.time() - t0
+        n = raycast.launches
+        launches += n
+        with open(os.path.join(wd, "eval_distracting_cs_0.1.json")) as f:
+            rw = json.load(f)["episode_rewards"]
+        g = torch.Generator(device=dev).manual_seed(3)
+        states, _ = VectorEnv(env, 6).reset(g)
+        frames = {}
+        good = (len(rw) == cfg.eval_episodes and n > 0
+                and all(_finite(r) for r in rw))
+        for size, st in ((84, states),
+                         (cfg.eval_render_size, env_slice(states, slice(0, 1)))):
+            # thin capsules at 448 px: coincident end caps witnessed by
+            # the float64 evaluation (kernel_checks.compare_with_exact)
+            k, r, *x = kc.composited_pair(env, st, size, exact=size != 84)
+            torch.cuda.synchronize()
+            same, cmp = (kc.compare_with_exact(k, r, x[0]) if x
+                         else kc.compare_frames(k, r))
+            frames[f"{size}px"] = {"ok": same, **cmp}
+            good &= same
+        ok &= good
+        res[f"{domain}_{task}"] = {"ok": good, "seconds": s,
+                                   "episode_rewards": rw,
+                                   "kernel_launches": n, "frames": frames}
+    emit({"phase": "distracting_cs_dmcgb", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, **res})
+    return ok, launches
+
+
 def main():
     import torch
 
@@ -1258,7 +1595,7 @@ def main():
           "physics_ms_per_env_step": parts["physics"],
           "breakdown_ms": parts, "profiled_step_ms": wall,
           "device_busy_ms": busy,
-          "device_idle_share": 1 - busy / (1e3 * statistics.median(step_s)),
+          "device_idle_share": _idle(busy, 1e3 * statistics.median(step_s)),
           "top_kernels_ms": top, "reward_mean": float(rew.mean())})
     if not ok_env:
         return 1
@@ -1315,7 +1652,7 @@ def main():
     wall, busy, top = kc.profiled(upd, 5)
     emit({"phase": "update_profile", "card": smi, "batch_size": 128,
           "ms_per_update": ms_upd, "profiled_ms_per_update": wall,
-          "device_busy_ms": busy, "device_idle_share": 1 - busy / ms_upd,
+          "device_busy_ms": busy, "device_idle_share": _idle(busy, ms_upd),
           "top_kernels_ms": top})
 
     # ---- 6. the flagship sgsac trainer (eval, video, checkpoints), the
@@ -1359,7 +1696,19 @@ def main():
     if not ok_ext:
         return 1
 
-    # ---- 10. kernels line, card line, result
+    # ---- 10. the DMCGB domains: env, kernel and golden trajectories on
+    # each, SGQN on cartpole, distracting_cs on ball_in_cup and reacher
+    ok_dm, dm_rows, dm_launches = dmcgb_domains_phase(smi, raycast, kc)
+    if not ok_dm:
+        return 1
+    ok_cp, cp_launches = cartpole_trainer_phase(cfg, smi, raycast)
+    if not ok_cp:
+        return 1
+    ok_dd, dd_launches = distracting_dmcgb_phase(cfg, smi, raycast, kc)
+    if not ok_dd:
+        return 1
+
+    # ---- 11. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -1374,8 +1723,12 @@ def main():
                              "algorithms": alg_launches,
                              "pad_trainer": pad_launches,
                              "pad_offline_eval": pad_eval_launches,
-                             "external_data": ext_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+                             "external_data": ext_launches,
+                             "dmcgb_domains": dm_launches,
+                             "cartpole_trainer": cp_launches,
+                             "distracting_cs_dmcgb": dd_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + [
+            d["kernel"] for d in dm_rows.values()]),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
         "device_ms_unculled": main_row["kernel_device_ms_unculled"],
@@ -1390,6 +1743,13 @@ def main():
                               "bound_ms", "bound_by", "bound_unculled_ms",
                               "share_of_bound")}
             for r in rows},
+        "at_domains": {name: {
+            k: d["kernel"][k] for k in (
+                "kernel_ms", "kernel_device_ms",
+                "kernel_device_ms_unculled",
+                "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                "identical", "seg_mismatch_max")}
+            for name, d in dm_rows.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

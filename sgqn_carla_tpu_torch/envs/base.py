@@ -72,10 +72,12 @@ class StepResult:
 
 
 def env_slice(state, sl):
-    """The state of envs `sl` (tensors sliced on their leading dim;
-    generators shared)."""
+    """The state of envs `sl` (tensors sliced on their leading dim, also
+    inside dicts such as `PhysState.task_aux`; generators shared)."""
     if isinstance(state, torch.Tensor):
         return state[sl]
+    if isinstance(state, dict):
+        return {k: env_slice(v, sl) for k, v in state.items()}
     if dataclasses.is_dataclass(state):
         return replace(state, **{f.name: env_slice(getattr(state, f.name), sl)
                                  for f in dataclasses.fields(state)})
@@ -152,6 +154,7 @@ class DMCPixelEnv:
         else:
             cam = camera_pose(model, self.task.camera_id, kin)
         Rg, pg = engine.geom_world(model, kin)
+        pg = self.task.render_overrides(state.phys, pg)
         background, bg_mats = None, ()
         if self.videos is not None:
             if self.mode == "distracting_cs":

@@ -21,7 +21,7 @@ def load(domain_name: str, task_name: str, **kwargs):
     _ensure_imported()
     key = (domain_name, task_name)
     if key not in _REGISTRY:
-        if domain_name != "walker":
+        if domain_name not in {d for d, _ in _REGISTRY}:
             raise NotImplementedError(
                 f"domain {domain_name!r} is not ported yet (ROADMAP Queue "
                 "1, 'Remaining physics')")
@@ -43,7 +43,14 @@ def _ensure_imported():
     global _IMPORTED
     if _IMPORTED:
         return
-    # the port carries walker only; the other domains are ROADMAP Queue 1,
+    # the DMCGB domains; the rest of the suite is ROADMAP Queue 1,
     # "Remaining physics"
-    from sgqn_carla_tpu_torch.physics.domains import walker  # noqa: F401
+    from sgqn_carla_tpu_torch.physics.domains import (  # noqa: F401
+        ball_in_cup,
+        cartpole,
+        cheetah,
+        finger,
+        reacher,
+        walker,
+    )
     _IMPORTED = True

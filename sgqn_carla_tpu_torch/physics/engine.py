@@ -2,8 +2,10 @@
 
 Counterpart of the scalar-SoA path of `sgqn_carla_tpu/physics/engine.py`
 (`forward_kinematics`, CRBA `_mass_matrix_soa`, RNEA `_bias_forces_soa`, the
-unrolled Cholesky `_solve_spd`, capsule/sphere-plane penalty contacts,
-explicit joint limits, semi-implicit Euler with implicit dof damping).
+unrolled Cholesky `_solve_spd`, penalty contacts of sphere/capsule/cylinder
+against planes and against each other (closest segment points), limited
+spatial tendons, explicit joint limits, semi-implicit Euler with implicit
+dof damping, and RK4).
 
 Every SoA scalar of the JAX code is an `(E,)` tensor here — one entry per
 env — or a Python float where the JAX code traced a constant. The static
@@ -13,9 +15,10 @@ branch on tensor values: the sequence can be captured in a CUDA graph as it
 stands. In eager mode every op is one kernel launch, which bounds the speed
 on the card (root PERF.md records the measured time per env step).
 
-Models outside the walker slice raise `NotImplementedError` naming the
+Models outside the ported domains raise `NotImplementedError` naming the
 ROADMAP item that ports them: the dense path (nl ≥ 12), heightfields,
-tendons, fluid forces, implicit contacts/limits and RK4.
+fixed tendons, fluid forces, implicit contacts/limits, and box or ellipsoid
+contact pairs.
 """
 
 from __future__ import annotations
@@ -76,15 +79,13 @@ def check_supported(model: Model):
             + _ROADMAP_PHYSICS)
     if model.hfield_geom >= 0:
         raise NotImplementedError("heightfield terrain: " + _ROADMAP_PHYSICS)
-    if model.tendons or (model.ft_stiff is not None and len(model.ft_stiff)):
-        raise NotImplementedError("tendons: " + _ROADMAP_PHYSICS)
+    if model.ft_stiff is not None and len(model.ft_stiff):
+        raise NotImplementedError("fixed tendons: " + _ROADMAP_PHYSICS)
     if model.density > 0 or model.viscosity > 0:
         raise NotImplementedError("fluid forces: " + _ROADMAP_PHYSICS)
     if model.implicit_contacts or model.implicit_limits:
         raise NotImplementedError(
             "implicit contacts/limits: " + _ROADMAP_PHYSICS)
-    if model.integrator == "rk4":
-        raise NotImplementedError("RK4 integrator: " + _ROADMAP_PHYSICS)
 
 
 def _ancestors(model: Model) -> np.ndarray:
@@ -393,17 +394,46 @@ def _capsule_segment_soa(g, qg, pw):
     return v3.sub(pw, d), v3.add(pw, d)
 
 
+def _clip01(x):
+    """x clipped to [0, 1] (a component: tensor or Python float)."""
+    return min(max(x, 0.0), 1.0) if isinstance(x, float) else torch.clamp(
+        x, 0.0, 1.0)
+
+
+def _closest_segment_points(a0, a1, b0, b1):
+    """Closest points between segments [a0,a1], [b0,b1] (smooth clamped)."""
+    m, s2, d = v3.mul, v3.sub2, v3.div
+    d1 = v3.sub(a1, a0)
+    d2 = v3.sub(b1, b0)
+    r = v3.sub(a0, b0)
+    a = v3.add2(v3.dot(d1, d1), 1e-12)
+    e = v3.add2(v3.dot(d2, d2), 1e-12)
+    fv = v3.dot(d2, r)
+    c = v3.dot(d1, r)
+    b = v3.dot(d1, d2)
+    denom = s2(m(a, e), m(b, b))
+    s = _clip01(d(s2(m(b, fv), m(c, e)), v3.add2(denom, 1e-12)))
+    t = _clip01(d(v3.add2(m(b, s), fv), e))
+    s = _clip01(d(s2(m(b, t), c), a))
+    return v3.add(a0, v3.scale(d1, s)), v3.add(b0, v3.scale(d2, t))
+
+
+_ROUND = (SPHERE, CAPSULE, CYLINDER)
+
+
 def _contacts_for_pair(model, kin, gi, gj, gw):
     """Contacts of one static geom pair: a list of (point, n, depth, mu, la,
-    lb), n from geom b toward geom a. The walker slice carries plane vs
-    sphere/capsule/cylinder; other pairs raise."""
+    lb), n from geom b toward geom a. Carried: plane vs sphere/capsule/
+    cylinder, and sphere/capsule/cylinder vs each other (a cylinder is its
+    axis segment with its radius, as in the JAX engine); pairs with a box
+    or an ellipsoid raise."""
     a, b = model.geoms[gi], model.geoms[gj]
     if a.gtype == PLANE:  # plane second → normal points at the body
         a, b, gi, gj = b, a, gj, gi
     (qa, pa), (qb, pb) = gw[gi], gw[gj]
     mu = max(a.friction, b.friction)
     out = []
-    if b.gtype == PLANE and a.gtype in (SPHERE, CAPSULE, CYLINDER):
+    if b.gtype == PLANE and a.gtype in _ROUND:
         n = v3.q_columns(qb)[2]
         d0 = v3.dot(n, pb)
         r = float(a.size[0])
@@ -412,6 +442,19 @@ def _contacts_for_pair(model, kin, gi, gj, gw):
         for e in ends:
             dist = v3.sub2(v3.dot(n, e), d0)
             out.append((v3.sub(e, v3.scale(n, dist)), n, v3.sub2(r, dist), mu))
+    elif a.gtype in _ROUND and b.gtype in _ROUND:
+        def seg(g, q, p):
+            return (p, p) if g.gtype == SPHERE else _capsule_segment_soa(
+                g, q, p)
+
+        ca, cb = _closest_segment_points(*seg(a, qa, pa), *seg(b, qb, pb))
+        delta = v3.sub(ca, cb)
+        dist = v3.norm(delta, eps=1e-12)
+        n = v3.scale(delta, 1.0 / (dist + 1e-9))
+        ra, rb = float(a.size[0]), float(b.size[0])
+        depth = (ra + rb) - dist
+        point = v3.add(cb, v3.scale(n, rb - depth / 2))
+        out.append((point, n, depth, mu))
     else:
         raise NotImplementedError(
             f"contact pair geom types {a.gtype} vs {b.gtype}: "
@@ -593,6 +636,39 @@ def contact_taus(model: Model, kin: Kin, gw, anc: np.ndarray):
     return tau, pf
 
 
+def tendon_taus(model: Model, kin: Kin, anc: np.ndarray, tau):
+    """Limited spatial tendons as one-sided stiff springs (ball_in_cup's
+    string): adds each tendon's generalized forces to the nv list `tau`.
+    A site on link < 0 is fixed in the world."""
+    qs, ps = kin.soa[0], kin.soa[1]
+
+    def site(link, pos):
+        pos = tuple(float(c) for c in pos)
+        if link < 0:
+            return pos
+        return v3.add(ps[link], v3.qrot(qs[link], pos))
+
+    for t in model.tendons:
+        pa = site(t.link_a, t.pos_a)
+        pb = site(t.link_b, t.pos_b)
+        delta = v3.sub(pa, pb)
+        length = v3.norm(delta, eps=1e-12) + 1e-9
+        dirn = v3.scale(delta, 1.0 / length)
+        stretch = torch.clamp(length - float(t.range[1]), min=0.0)
+        rate = v3.dot(v3.sub(_point_velocity(kin, t.link_a, pa),
+                             _point_velocity(kin, t.link_b, pb)), dirn)
+        fmag = t.stiffness * stretch + torch.where(
+            stretch > 0, v3.full(v3.mul(t.damping, rate), stretch), 0.0)
+        f3 = v3.scale(dirn, -torch.clamp(fmag, min=0.0))
+        for link, sign, x in ((t.link_a, 1.0, pa), (t.link_b, -1.0, pb)):
+            for j, val in enumerate(_project_point_force(kin, anc, link, x,
+                                                         f3)):
+                if val is not None:
+                    tau[j] = (v3.add2(tau[j], val) if sign > 0
+                              else v3.sub2(tau[j], val))
+    return tau
+
+
 def _limit_gains(model: Model):
     """Per-dof limit spring/damper of the explicit path: solref gains
     scaled by the joint-space effective inertia (host numpy)."""
@@ -642,14 +718,18 @@ def _forward_dynamics(model: Model, qpos, qvel, ctrl, anc):
     Iw = [_spi_from_link(model, i, kin) for i in range(model.nl)]
     M = _mass_matrix_soa(model, kin, Iw)
     C = _bias_forces_soa(model, kin, qvel, Iw)
-    # MuJoCo's Euler integrator treats dof damping implicitly:
-    # (M + h·diag(damping))·qacc = τ with −D·v still in τ
-    h = model.timestep
-    for i in range(model.nl):
-        di = float(model.jnt_damping[i])
-        if di:
-            M[i][i] = v3.add2(M[i][i], float(np.float32(h * di)))
+    if model.integrator != "rk4":
+        # MuJoCo's Euler integrator treats dof damping implicitly:
+        # (M + h·diag(damping))·qacc = τ with −D·v still in τ; RK4 keeps
+        # it explicit
+        h = model.timestep
+        for i in range(model.nl):
+            di = float(model.jnt_damping[i])
+            if di:
+                M[i][i] = v3.add2(M[i][i], float(np.float32(h * di)))
     tau = list(applied_taus(model, qpos, qvel, ctrl).unbind(-1))
+    if model.tendons:
+        tau = tendon_taus(model, kin, anc, tau)
     if len(model.contact_pairs):
         gw = _geom_world_soa(model, kin)
         tau_c, pair_f = contact_taus(model, kin, gw, anc)
@@ -661,9 +741,25 @@ def _forward_dynamics(model: Model, qpos, qvel, ctrl, anc):
     return torch.stack([v3.full(a, kin.like) for a in qacc], -1), pair_f
 
 
+def max_penetration(model: Model, qpos: torch.Tensor) -> torch.Tensor:
+    """Deepest contact penetration of each configuration (≤ 0: free), for
+    qpos (..., nv) → (...). Backs finger's collision-free episode init
+    (the JAX engine's `max_penetration`, vmapped over the batch)."""
+    check_supported(model)
+    q = qpos.float().reshape(-1, model.nv)
+    kin = forward_kinematics(model, q, torch.zeros_like(q))
+    gw = _geom_world_soa(model, kin)
+    depths = [torch.full_like(kin.like, -1.0)]
+    for gi, gj in model.contact_pairs:
+        depths += [v3.full(c[2], kin.like) for c in _contacts_for_pair(
+            model, kin, int(gi), int(gj), gw)]
+    return torch.stack(depths, -1).amax(-1).reshape(qpos.shape[:-1])
+
+
 def step(model: Model, qpos, qvel, ctrl, hfield=None) -> StepOut:
-    """One semi-implicit Euler substep of `model.timestep` seconds for a
-    batch: qpos, qvel (E, nl), ctrl (E, nu)."""
+    """One substep of `model.timestep` seconds for a batch: qpos, qvel
+    (E, nl), ctrl (E, nu). Semi-implicit Euler, or RK4 for models that ask
+    for it (contact_force from the first stage, as in the JAX engine)."""
     if hfield is not None:
         raise NotImplementedError("heightfield contacts: " + _ROADMAP_PHYSICS)
     check_supported(model)
@@ -671,6 +767,19 @@ def step(model: Model, qpos, qvel, ctrl, hfield=None) -> StepOut:
     h = model.timestep
     qpos = qpos.float()
     qvel = qvel.float()
+    if model.integrator == "rk4":
+        k1a, pf = _forward_dynamics(model, qpos, qvel, ctrl, anc)
+        k2v = qvel + 0.5 * h * k1a
+        k2a, _ = _forward_dynamics(model, qpos + 0.5 * h * qvel, k2v, ctrl,
+                                   anc)
+        k3v = qvel + 0.5 * h * k2a
+        k3a, _ = _forward_dynamics(model, qpos + 0.5 * h * k2v, k3v, ctrl,
+                                   anc)
+        k4v = qvel + h * k3a
+        k4a, _ = _forward_dynamics(model, qpos + h * k3v, k4v, ctrl, anc)
+        qvel_n = qvel + h / 6 * (k1a + 2 * k2a + 2 * k3a + k4a)
+        qpos_n = qpos + h / 6 * (qvel + 2 * k2v + 2 * k3v + k4v)
+        return StepOut(qpos_n, qvel_n, pf)
     qacc, pf = _forward_dynamics(model, qpos, qvel, ctrl, anc)
     qvel_n = qvel + h * qacc
     qpos_n = qpos + h * qvel_n

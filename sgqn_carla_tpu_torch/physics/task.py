@@ -12,7 +12,7 @@ its leading dimension, and episode initialisation draws from a
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,6 +28,8 @@ class PhysState:
     qpos: torch.Tensor           # (E, nv)
     qvel: torch.Tensor           # (E, nv)
     contact_force: torch.Tensor  # (E, npair) latest normal force magnitudes
+    task_aux: Any = None         # per-episode task parameters, e.g.
+    #                              {"target_xy": (E, 2)}; leading dim E
 
     def replace(self, **kw) -> "PhysState":
         return replace(self, **kw)
@@ -45,6 +47,10 @@ class Task:
     reward_fn: Callable   # (model, PhysState, kin, ctrl) -> (E,) tensor
     camera_id: int = 0
     time_limit: float = 25.0
+    # per-episode world positions of static geoms for rendering (reacher's
+    # and finger-turn's targets, which the reference moves in
+    # model.geom_pos / site_pos): (model, PhysState) -> {geom: (E, 3)}
+    render_overrides_fn: Optional[Callable] = None
 
     @property
     def action_size(self) -> int:
@@ -71,6 +77,16 @@ class Task:
     def reward(self, state: PhysState, ctrl) -> torch.Tensor:
         kin = engine.forward_kinematics(self.model, state.qpos, state.qvel)
         return self.reward_fn(self.model, state, kin, ctrl)
+
+    def render_overrides(self, state: PhysState,
+                         pg: torch.Tensor) -> torch.Tensor:
+        """Geom positions pg (E, G, 3) from `engine.geom_world` with the
+        task's per-episode overrides written in (in place)."""
+        if self.render_overrides_fn is not None:
+            for idx, pos in self.render_overrides_fn(self.model,
+                                                     state).items():
+                pg[:, idx] = pos
+        return pg
 
 
 def randomize_limited_and_rotational_joints(model: Model, gen, num_envs: int,

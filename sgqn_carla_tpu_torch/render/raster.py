@@ -253,8 +253,8 @@ def camera_rays(R, tan_half: float, H: int, W: int, device):
     """Unit ray directions (E, P) × 3 for camera rotations R: 9-tuple of
     (E, 1) row-major entries; pixel order is row-major over (H, W)."""
     idx = torch.arange(H * W, device=device)
-    px = (idx % W).float()
-    py = torch.div(idx, W, rounding_mode="floor").float()
+    px = (idx % W).to(R[0].dtype)
+    py = torch.div(idx, W, rounding_mode="floor").to(R[0].dtype)
     cx = (2.0 * (px + 0.5) / W - 1.0) * (tan_half * (W / H))
     cy = (1.0 - 2.0 * (py + 0.5) / H) * tan_half
     d_raw = (R[0] * cx + R[1] * cy - R[2],

@@ -152,18 +152,20 @@ def _offsets(G: int):
                 sky=o_grid1 + 9, sky2=o_grid1 + 12, pdim=o_grid1 + 15)
 
 
-def _pack_params(Rg, pg, app: Appearance, cam_pos, cam_R) -> torch.Tensor:
-    """Per-env scene state as one (E, PDIM) f32 tensor, in the layout of
+def _pack_params(Rg, pg, app: Appearance, cam_pos, cam_R,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Per-env scene state as one (E, PDIM) tensor, in the layout of
     pallas_raster._pack_params: cam_pos(3) cam_R(9 row-major) Rg(G*9
     row-major) pg(G*3) rgba(G*4) grid_rgb1(3) grid_rgb2(3) grid_mark(3)
-    sky(3) sky2(3)."""
+    sky(3) sky2(3). The kernel takes float32; float64 packs feed the
+    plain version's exact-arithmetic evaluation in the checks."""
     E, G = Rg.shape[0], Rg.shape[1]
     parts = [cam_pos.reshape(E, 3), cam_R.reshape(E, 9),
              Rg.reshape(E, G * 9), pg.reshape(E, G * 3),
              app.geom_rgba.reshape(E, G * 4), app.grid_rgb1.reshape(E, 3),
              app.grid_rgb2.reshape(E, 3), app.grid_markrgb.reshape(E, 3),
              app.skybox_rgb.reshape(E, 3), app.skybox_rgb2.reshape(E, 3)]
-    return torch.cat([p.float() for p in parts], dim=1).contiguous()
+    return torch.cat([p.to(dtype) for p in parts], dim=1).contiguous()
 
 
 _TABLES: dict = {}
@@ -244,12 +246,15 @@ def _render_packed_ref(model: Model, params: torch.Tensor, fovy: float,
 
 
 def render_batch_ref(model: Model, Rg, pg, app: Appearance, cam_pos, cam_R,
-                     fovy: float, H: int, W: int, with_depth: bool = False):
+                     fovy: float, H: int, W: int, with_depth: bool = False,
+                     dtype=torch.float32):
     """Plain version of the kernel. Rg (E,G,3,3), pg (E,G,3), app with (E,
-    ...) fields, cam_pos (E,3), cam_R (E,3,3). Returns (rgb f32 (E,3,H,W)
-    in [0,1], seg i32 (E,H,W)[, depth f32 (E,H,W)])."""
+    ...) fields, cam_pos (E,3), cam_R (E,3,3). Returns (rgb (E,3,H,W) in
+    [0,1], seg i32 (E,H,W)[, depth (E,H,W)]), computed in `dtype`
+    (float64: the exact-arithmetic reference of the checks)."""
     rgb, seg, depth = _render_packed_ref(
-        model, _pack_params(Rg, pg, app, cam_pos, cam_R), float(fovy), H, W)
+        model, _pack_params(Rg, pg, app, cam_pos, cam_R, dtype), float(fovy),
+        H, W)
     return (rgb, seg, depth) if with_depth else (rgb, seg)
 
 

@@ -71,6 +71,31 @@ def test_culling_changes_no_output_bit(E, size, inside):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("domain,task,gtype", [
+    ("cartpole", "swingup", "box"), ("finger", "turn_easy", "cylinder"),
+    ("ball_in_cup", "catch", "sphere"), ("reacher", "easy", "sphere")])
+def test_kernel_matches_plain_version_on_domain_geoms(domain, task, gtype):
+    """The box, cylinder and sphere branches on the DMCGB domains' posed
+    scenes (fixed cameras): culled and unculled bit-identical, both within
+    the plain version's bounds, and the geom type drawn."""
+    from sgqn_carla_tpu_torch.physics import model as pm
+
+    dev = _cuda()
+    m, (Rg, pg, app, cpos, cR, fovy) = kc.task_scenes(domain, task, 16, 2,
+                                                      dev)
+    params = raycast._pack_params(Rg, pg, app, cpos, cR)
+    k = raycast._launch(m, params, fovy, 84, 84, True)
+    ku = raycast._launch(m, params, fovy, 84, 84, True, cull=False)
+    for a, b in zip(k, ku):
+        assert torch.equal(a, b)
+    _check(k, raycast._render_packed_ref(m, params, fovy, 84, 84))
+    want = getattr(pm, gtype.upper())
+    ids = [i for i, g in enumerate(m.geoms) if g.gtype == want]
+    drawn = set(torch.unique(k[1]).tolist())
+    assert drawn & set(ids)
+
+
+@pytest.mark.cuda
 def test_render_frames_launches_the_culled_kernel(monkeypatch):
     dev = _cuda()
     args = kc.posed_walker(2, 1, dev)

@@ -167,7 +167,7 @@ def test_walker_walk_golden_trajectory():
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdomains.load("cheetah", "run")
+        tdomains.load("hopper", "stand")
 
 
 def test_math3d_helpers_match():
@@ -185,7 +185,7 @@ def test_math3d_helpers_match():
 
 
 @pytest.mark.parametrize("change", [
-    {"integrator": "rk4"}, {"density": 1000.0}, {"implicit_contacts": True},
+    {"implicit_limits": True}, {"density": 1000.0}, {"implicit_contacts": True},
     {"hfield_geom": 0}, {"nl": 12}])
 def test_unported_model_features_raise(change):
     tt = tdomains.load("walker", "walk")

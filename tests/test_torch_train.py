@@ -225,10 +225,10 @@ def test_attribution_images_match_jax_grids_and_names(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"domain_name": "cheetah", "task_name": "run"}, "Remaining physics"),
+    ({"domain_name": "hopper", "task_name": "stand"}, "Remaining physics"),
     ({"replay_spill": "host"}, "Host-spill"),
     ({"mesh_data_axis": 2}, "Multi-GPU"),
-    ({"domain_name": "cartpole", "task_name": "swingup"},
+    ({"domain_name": "fish", "task_name": "upright"},
      "Remaining physics"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
