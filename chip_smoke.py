@@ -133,10 +133,26 @@ Phases, each printing one JSON line:
               px; env 0 at 448 px, with the plain version's float64
               evaluation as the witness for coincident capsule end caps:
               kernel_checks.compare_with_exact)
- 11. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
+ 11. suite_domains  pendulum-swingup, acrobot-swingup, point_mass-hard,
+              lqr_6_2, swimmer6 (scalar path and fluid), swimmer15,
+              fish-swim and humanoid-walk (the dense path) at 16 envs
+              and 84 px, as dmcgb_domains (reset and 5 random steps, the
+              split, eager ops, idle share, the kernel on each posed
+              scene: ellipsoids, trackcom cameras, render overrides);
+              then the eight golden MuJoCo trajectories (pendulum,
+              acrobot, point_mass, lqr 2_1 and 6_2, swimmer6, fish
+              upright, humanoid stand) on the card. Fish and humanoid run
+              with TF32 matmuls allowed globally (the physics pins its
+              own to f32)
+     humanoid_trainer  train --domain_name humanoid --task_name walk
+              --algorithm sgsac at full width and 8 envs, as
+              cartpole_trainer: video_hard at S2, saves, resume/S2 bit
+              for bit, a resume to S3
+ 12. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
      offline_eval, algorithms, pad_trainer, pad_offline_eval,
      external_data, dmcgb_domains, cartpole_trainer,
-     distracting_cs_dmcgb; the kernel's times on each DMCGB scene), then
+     distracting_cs_dmcgb, suite_domains, humanoid_trainer; the kernel's
+     times on each domain's scene), then
      the card's nvidia-smi line, then {"ok": true, "device": {...}} as
      the last line. The work dir build/chip_smoke_logs/ is emptied first.
 
@@ -1289,6 +1305,57 @@ def dmcgb_domains_phase(smi, raycast, kc):
     return ok, rows, launches
 
 
+# ---- the contact-free and explicit-contact suite domains
+SUITE = (("pendulum", "swingup"), ("acrobot", "swingup"),
+         ("point_mass", "hard"), ("lqr", "lqr_6_2"), ("swimmer", "swimmer6"),
+         ("swimmer", "swimmer15"), ("fish", "swim"), ("humanoid", "walk"))
+SUITE_GOLDENS = (("pendulum", "swingup"), ("acrobot", "swingup"),
+                 ("point_mass", "easy"), ("lqr", "lqr_2_1"),
+                 ("lqr", "lqr_6_2"), ("swimmer", "swimmer6"),
+                 ("fish", "upright"), ("humanoid", "stand"))
+TF32_ON = ("fish", "humanoid")  # dense domains run with TF32 allowed
+
+
+def suite_domains_phase(smi, raycast, kc):
+    """The suite domains (domain_row each at 16 envs), then their golden
+    MuJoCo trajectories on the card at tests/test_parity.py's bounds. The
+    dense domains fish and humanoid run with TF32 matmuls allowed
+    globally: the physics pins its own matmuls to f32. Returns (ok, rows,
+    kernel launches)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.physics import golden_replay
+
+    start = time.time()
+    ok, rows, launches = True, {}, 0
+    try:
+        for domain, task in SUITE:
+            torch.backends.cuda.matmul.allow_tf32 = domain in TF32_ON
+            t0 = time.time()
+            good, row, n = domain_row(domain, task, raycast, kc)
+            row["phase_s"] = time.time() - t0
+            row["tf32_allowed"] = domain in TF32_ON
+            ok &= good
+            launches += n
+            rows[f"{domain}_{task}"] = row
+        goldens = {}
+        for domain, task in SUITE_GOLDENS:
+            torch.backends.cuda.matmul.allow_tf32 = domain in TF32_ON
+            t0 = time.time()
+            res = golden_replay.replay(domain, task, os.path.join(
+                REPO, "tests", "golden", f"{domain}_{task}.npz"), device=DEV)
+            res["seconds"] = time.time() - t0
+            res["tf32_allowed"] = domain in TF32_ON
+            ok &= res["ok"]
+            goldens[f"{domain}_{task}"] = res
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "suite_domains", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "domains": rows,
+          "golden_trajectories": goldens})
+    return ok, rows, launches
+
+
 def trainer_argv(cfg, log_dir, **kw):
     """The training CLI's command line at chip_smoke's depth: sgsac at the
     published widths, saves with the ring at S1 and S2, eval at S2."""
@@ -1369,6 +1436,27 @@ def cartpole_trainer_phase(cfg, smi, raycast):
     recording; resume/S2 restored into fresh objects bit for bit; a second
     call resumes at S2 and trains to S3. Returns (ok, kernel launches of
     training and eval)."""
+    return domain_trainer_phase(cfg, smi, raycast, "cartpole_trainer",
+                                "cartpole", "swingup", sgqn_quantile=0.98)
+
+
+def humanoid_trainer_phase(cfg, smi, raycast):
+    """`train --domain_name humanoid --task_name walk --algorithm sgsac` at
+    full width (8 envs, 11×32 bf16 trunk, hidden 1024, batch 128, the
+    default quantile), as `cartpole_trainer` cut in depth only: the dense
+    path, the collision-free init and the trackcom camera under SGQN,
+    video_hard evaluated at S2, resume/S2 bit for bit, a resume to S3."""
+    return domain_trainer_phase(cfg, smi, raycast, "humanoid_trainer",
+                                "humanoid", "walk")
+
+
+def domain_trainer_phase(cfg, smi, raycast, phase, domain, task, **kw):
+    """SGQN through the training CLI on one domain at 8 envs and full
+    width, episodes of EP wrapper steps: saves with the ring at S1 and
+    S2, video_hard evaluated at S2 with the 448-px recording; resume/S2
+    restored into fresh objects bit for bit; a second call resumes at S2
+    and trains to S3. Returns (ok, kernel launches of training and
+    eval)."""
     import numpy as np
 
     from sgqn_carla_tpu_torch.core.config import parse_args
@@ -1376,11 +1464,11 @@ def cartpole_trainer_phase(cfg, smi, raycast):
     from sgqn_carla_tpu_torch.train import train as train_cli
 
     start = time.time()
-    log_dir = os.path.join(cfg.log_dir, "cartpole")
-    cp_argv = lambda **kw: trainer_argv(
-        cfg, log_dir, domain_name="cartpole", task_name="swingup",
-        eval_mode="video_hard", sgqn_quantile=0.98, **kw)
-    argv = cp_argv()
+    log_dir = os.path.join(cfg.log_dir, domain)
+    run_argv = lambda **k: trainer_argv(
+        cfg, log_dir, domain_name=domain, task_name=task,
+        eval_mode="video_hard", **kw, **k)
+    argv = run_argv()
     raycast.launches = 0
     t0 = time.time()
     out = train_cli.main(argv)
@@ -1403,20 +1491,19 @@ def cartpole_trainer_phase(cfg, smi, raycast):
                 and bool(frames.std() > 0))
     ev = tm["eval"]
     differ, restore_s, _ = restore_check(parse_args(argv), out, make_env)
-    resumed, last = resumed_call(train_cli.main, cp_argv(train_steps=S3),
+    resumed, last = resumed_call(train_cli.main, run_argv(train_steps=S3),
                                  wd)
     ok = (finite and aux_nonzero and eval_ok and video_ok and _on_cuda(st)
           and not differ and resumed and launches > 0
           and all(e["launches"] > 0 for e in ev.values())
           and all(_finite(last[k]) for k in losses))
-    emit({"phase": "cartpole_trainer", "ok": ok, "card": smi,
+    emit({"phase": phase, "ok": ok, "card": smi,
           "phase_s": time.time() - start,
-          "config": {"domain": "cartpole_swingup", "algorithm": "sgsac",
+          "config": {"domain": f"{domain}_{task}", "algorithm": "sgsac",
                      "num_envs": RECORD_E, "episode_length": 4 * EP,
                      "init_steps": S1, "train_steps": S2,
                      "eval_mode": "video_hard", "trunk": "11x32 bf16",
-                     "hidden_dim": 1024, "batch_size": 128,
-                     "sgqn_quantile": 0.98},
+                     "hidden_dim": 1024, "batch_size": 128, **kw},
           "seconds": train_s, "episodes": out["episodes"],
           "losses_finite": finite, "aux_loss_nonzero_once": aux_nonzero,
           "eval_ok": eval_ok, "video_ok": video_ok,
@@ -1708,7 +1795,16 @@ def main():
     if not ok_dd:
         return 1
 
-    # ---- 11. kernels line, card line, result
+    # ---- 11. the suite domains (dense path, fluid, free roots): env,
+    # kernel and golden trajectories on each, SGQN on humanoid walk
+    ok_su, su_rows, su_launches = suite_domains_phase(smi, raycast, kc)
+    if not ok_su:
+        return 1
+    ok_hu, hu_launches = humanoid_trainer_phase(cfg, smi, raycast)
+    if not ok_hu:
+        return 1
+
+    # ---- 12. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -1726,9 +1822,12 @@ def main():
                              "external_data": ext_launches,
                              "dmcgb_domains": dm_launches,
                              "cartpole_trainer": cp_launches,
-                             "distracting_cs_dmcgb": dd_launches},
+                             "distracting_cs_dmcgb": dd_launches,
+                             "suite_domains": su_launches,
+                             "humanoid_trainer": hu_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [
-            d["kernel"] for d in dm_rows.values()]),
+            d["kernel"] for d in list(dm_rows.values())
+            + list(su_rows.values())]),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
         "device_ms_unculled": main_row["kernel_device_ms_unculled"],
@@ -1749,7 +1848,7 @@ def main():
                 "kernel_device_ms_unculled",
                 "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                 "identical", "seg_mismatch_max")}
-            for name, d in dm_rows.items()},
+            for name, d in {**dm_rows, **su_rows}.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,551 @@
+"""Dense (batched matmul) dynamics path for large kinematic trees.
+
+Counterpart of `sgqn_carla_tpu/physics/dense.py`. `engine.step` sends
+models of nl ≥ 12 links here (swimmer15: 17, fish: 13, humanoid: 27), as
+the JAX engine does: the scalar path's op count grows O(nl²) and beyond,
+this one O(nl) in launches. The same physics as the scalar path, over a
+batch of envs:
+
+  * FK as a Python loop over the links (the JAX scan): the joint
+    rotations and local offsets of every link are formed at once, and
+    each link then costs one rotation product and one offset product on
+    (E, 3, 3) tensors; axes, anchors, motion subspaces, velocities (one
+    ancestor-mask matmul) and COMs are batched afterwards;
+  * (E, nl, 6, 6) world-origin spatial inertias; CRBA as the masked Gram
+    product of composite inertias; RNEA (qacc = 0) as two mask matmuls;
+  * point forces (contacts, spatial tendons, fluid drag) gathered into
+    (E, nl, 6) world-origin wrenches, projected through every support
+    path with one maskᵀ matmul; contact wrenches reach their links and
+    normal forces their pairs through constant one-hot matrices (no
+    scatter, so the sums are deterministic);
+  * the SPD solve is a batched Cholesky (`cholesky_ex`, no host check)
+    and `cholesky_solve`, with the JAX path's 1e-10 shift.
+
+The narrow phase carries the point–plane (spheres, capsule and cylinder
+ends) and segment–segment categories of the JAX `CollisionProgram`;
+box and ellipsoid pairs, the implicit contact solver and heightfields
+raise `NotImplementedError` naming ROADMAP Queue 1. No host sync and no
+branch on tensor values: the path can be captured in a CUDA graph. Its
+matmuls run in true f32 (`engine.f32_matmuls` at every entry point).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from sgqn_carla_tpu_torch.physics import engine as eng
+from sgqn_carla_tpu_torch.physics.model import (
+    BOX, CAPSULE, CYLINDER, ELLIPSOID, HINGE, PLANE, SPHERE, Model,
+)
+
+DENSE_NL = eng._DENSE_NL  # 12: engine.step sends nl ≥ DENSE_NL here
+
+_f = torch.float32
+
+
+def _quat_mat_np(q):
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float64)
+
+
+def _skew_np(a):
+    return np.array([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]],
+                     [-a[1], a[0], 0.0]], np.float64)
+
+
+# skew(h) = Σ_k h_k·E_k: one product with these three constant matrices
+_LEVI = np.stack([_skew_np(e) for e in np.eye(3)])
+
+
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _mv(A, x):
+    """A @ x over (..., 3, 3) and (..., 3)."""
+    return (A @ x[..., None])[..., 0]
+
+
+_CONSTS: dict = {}
+
+
+def _consts(model: Model, device) -> Dict[str, torch.Tensor]:
+    """The model's constant arrays on `device`, made once per (model,
+    device): joint rotation generators, offsets, the ancestor mask,
+    inertias, the fluid coefficients, geom frames, the solve's shift."""
+    key = (id(model), str(device))
+    got = _CONSTS.get(key)
+    if got is not None and got[0] is model:
+        return got[1]
+    nl = model.nl
+    hinge = (np.asarray(model.jnt_type) == HINGE).astype(np.float64)
+    axis = np.asarray(model.jnt_axis, np.float64)
+    K = np.stack([_skew_np(a) for a in axis]) * hinge[:, None, None]
+    parent = np.asarray(model.link_parent)
+    shift = 1e-10 * np.eye(nl)
+    if model.integrator != "rk4":
+        # MuJoCo's Euler: (M + h·diag(damping))·qacc = τ
+        shift = shift + np.diag(np.asarray(model.jnt_damping)
+                                * model.timestep)
+    out = {
+        "C": np.stack([_quat_mat_np(q) for q in model.link_quat]),
+        "K": K, "K2": K @ K, "eye": np.eye(3),
+        "hinge": hinge[:, None], "axis": axis,
+        "slide_axis": axis * (1.0 - hinge[:, None]),
+        "jpos": model.jnt_pos, "link_pos": model.link_pos,
+        "com_l": model.link_com, "jnt_ref": model.jnt_ref,
+        "anc_f": eng._ancestors(model).astype(np.float64),
+        "mass": model.link_mass, "I_loc": model.link_inertia,
+        "armature": np.diag(np.asarray(model.jnt_armature, np.float64)),
+        "levi": _LEVI, "shift": shift,
+        "a_base": np.concatenate([np.zeros(3), -np.asarray(model.gravity)]),
+        "g_rot": np.stack([_quat_mat_np(g.quat) for g in model.geoms]),
+        "g_pos": np.stack([np.asarray(g.pos, np.float64)
+                           for g in model.geoms]),
+    }
+    if model.density > 0 or model.viscosity > 0:
+        out.update(_fluid_coefs(model))
+    t = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+         for k, v in out.items()}
+    # parent rows of links and geoms; the world is the padded row nl
+    t["pidx"] = torch.as_tensor(np.where(parent < 0, nl, parent),
+                                device=device)
+    t["glink"] = torch.as_tensor(
+        [g.link if g.link >= 0 else nl for g in model.geoms], device=device)
+    _CONSTS[key] = (model, t)
+    return t
+
+
+# -------------------------------------------------------------------- FK
+def forward_kinematics_scan(model: Model, qpos, qvel) -> eng.Kin:
+    """FK over the topologically ordered links (the JAX `lax.scan` FK, as
+    a Python loop): a dense `engine.Kin` with stacked R (E, nl, 3, 3), p,
+    S, v and com. A hinge turns its link about the local joint axis
+    (Rodrigues, R_j = I + sin θ·K + (1 − cos θ)·K²) around the joint
+    anchor; a slide shifts it along the axis."""
+    c = _consts(model, qpos.device)
+    nl = model.nl
+    theta = qpos.float() - c["jnt_ref"]
+    qd = qvel.float()
+    E = theta.shape[0]
+    sn = torch.sin(theta)[..., None, None]
+    cs = torch.cos(theta)[..., None, None]
+    Rj = c["eye"] + sn * c["K"] + (1.0 - cs) * c["K2"]      # (E, nl, 3, 3)
+    # each link's frame relative to its parent's: rotation C·R_j, offset
+    # link_pos + C·(jpos − R_j·jpos) (hinge) or link_pos + C·axis·θ (slide)
+    Rloc = (c["C"] @ Rj).transpose(0, 1).contiguous()        # (nl, E, 3, 3)
+    u = c["jpos"] - _mv(Rj, c["jpos"]) + c["slide_axis"] * theta[..., None]
+    tloc = (c["link_pos"] + _mv(c["C"], u)).transpose(0, 1)[..., None]
+    tloc = tloc.contiguous()                                 # (nl, E, 3, 1)
+    Rs, ps = [], []
+    for i in range(nl):
+        par = int(model.link_parent[i])
+        if par < 0:
+            Rs.append(Rloc[i])
+            ps.append(tloc[i])
+        else:
+            Rs.append(torch.bmm(Rs[par], Rloc[i]))
+            ps.append(torch.baddbmm(ps[par], Rs[par], tloc[i]))
+    R = torch.stack(Rs, 1)
+    p = torch.stack(ps, 1)[..., 0]
+    R_pad = torch.cat([R, c["eye"].expand(E, 1, 3, 3)], 1)
+    p_pad = torch.cat([p, p.new_zeros(E, 1, 3)], 1)
+    Rp, pp = R_pad[:, c["pidx"]], p_pad[:, c["pidx"]]
+    R0 = Rp @ c["C"]                         # frame before the joint moves
+    n = _mv(R0, c["axis"])                   # world joint axes
+    a = pp + _mv(Rp, c["link_pos"]) + _mv(R0, c["jpos"])   # anchors
+    h = c["hinge"]
+    S = torch.cat([n * h, _cross(a, n) * h + n * (1.0 - h)], -1)
+    v = torch.einsum("ij,ejk->eik", c["anc_f"], S * qd[..., None])
+    com = p + _mv(R, c["com_l"])
+    return eng.Kin(like=theta[:, 0], R=R, p=p, S=S, v=v, com=com)
+
+
+def geom_world(model: Model, kin: eng.Kin):
+    """World pose of every geom from a dense Kin: Rg (E, G, 3, 3), pg
+    (E, G, 3)."""
+    c = _consts(model, kin.like.device)
+    E = kin.like.shape[0]
+    R_pad = torch.cat([kin.R, c["eye"].expand(E, 1, 3, 3)], 1)
+    p_pad = torch.cat([kin.p, kin.p.new_zeros(E, 1, 3)], 1)
+    Rl = R_pad[:, c["glink"]]
+    return Rl @ c["g_rot"], p_pad[:, c["glink"]] + _mv(Rl, c["g_pos"])
+
+
+# --------------------------------------------------------- CRBA / RNEA
+def crm(v, m):
+    """Spatial motion cross product v × m, both (..., 6) (angular, linear)."""
+    w, u = v[..., :3], v[..., 3:]
+    mw, mv = m[..., :3], m[..., 3:]
+    return torch.cat([_cross(w, mw), _cross(w, mv) + _cross(u, mw)], -1)
+
+
+def crf(v, f):
+    """Spatial force cross product v ×* f."""
+    w, u = v[..., :3], v[..., 3:]
+    fn, ff = f[..., :3], f[..., 3:]
+    return torch.cat([_cross(w, fn) + _cross(u, ff), _cross(w, ff)], -1)
+
+
+def spatial_inertias(model: Model, kin: eng.Kin) -> torch.Tensor:
+    """(E, nl, 6, 6) world spatial inertia of every link about the world
+    origin: [[A, ĥ], [ĥᵀ, m·I₃]], A = R I_local Rᵀ + m(|c|²I − ccᵀ),
+    h = m·c."""
+    c = _consts(model, kin.like.device)
+    R, com = kin.R, kin.com
+    m = c["mass"]
+    A_c = R @ c["I_loc"] @ R.transpose(-1, -2)
+    c2 = (com * com).sum(-1)
+    A = A_c + m[:, None, None] * (c2[..., None, None] * c["eye"]
+                                  - com[..., :, None] * com[..., None, :])
+    h = m[:, None] * com
+    hx = torch.einsum("...k,kij->...ij", h, c["levi"])
+    mI = (m[:, None, None] * c["eye"]).expand_as(A)
+    return torch.cat([torch.cat([A, hx], -1),
+                      torch.cat([hx.transpose(-1, -2), mI], -1)], -2)
+
+
+def mass_matrix(model: Model, kin: eng.Kin, I6, anc_f) -> torch.Tensor:
+    """CRBA: composite inertias by one ancestor-mask product, then the
+    masked Gram product M = mask ⊙ (Ic·S)Sᵀ, symmetrised, plus armature."""
+    S = kin.S
+    Ic = torch.einsum("ki,ekab->eiab", anc_f, I6)
+    F = (Ic @ S[..., None])[..., 0]
+    Mlow = anc_f * (F @ S.transpose(-1, -2))   # rows i, ancestor cols j
+    M = Mlow + Mlow.transpose(-1, -2) - torch.diag_embed(
+        torch.diagonal(Mlow, dim1=-2, dim2=-1))
+    return M + _consts(model, S.device)["armature"]
+
+
+def bias_forces(model: Model, kin: eng.Kin, I6, qvel, anc_f) -> torch.Tensor:
+    """RNEA with qacc = 0 (Coriolis, centrifugal and gravity), (E, nv)."""
+    S, v = kin.S, kin.v
+    T = crm(v, S * qvel.float()[..., None])
+    a = _consts(model, S.device)["a_base"] + torch.einsum(
+        "ij,ejk->eik", anc_f, T)
+    f = (I6 @ a[..., None])[..., 0] + crf(v, (I6 @ v[..., None])[..., 0])
+    fsub = torch.einsum("ji,ejk->eik", anc_f, f)
+    return (S * fsub).sum(-1)
+
+
+def project_wrenches(kin: eng.Kin, anc_f, F) -> torch.Tensor:
+    """τ (E, nv) from per-link world-origin wrenches F (E, nl, 6): each
+    link's wrench acts through every dof on its support path."""
+    return (kin.S * torch.einsum("ji,ejk->eik", anc_f, F)).sum(-1)
+
+
+# -------------------------------------------------------------- fluid
+def _fluid_coefs(model: Model) -> Dict[str, np.ndarray]:
+    """Per-link, per-axis drag coefficients of the inertia-box model
+    (host numpy; zero rows for massless links)."""
+    nl = model.nl
+    box = np.zeros((nl, 3))
+    for i in range(nl):
+        if float(model.link_mass[i]) > 1e-9:
+            box[i] = eng.fluid_box(model, i)
+    rho, visc = float(model.density), float(model.viscosity)
+    b1, b2 = np.roll(box, -1, -1), np.roll(box, -2, -1)
+    diam = box.mean(-1, keepdims=True) * np.ones((1, 3))
+    return {"fl_quad_f": 0.5 * rho * b1 * b2,
+            "fl_quad_t": rho * box * (b1 ** 4 + b2 ** 4) / 64.0,
+            "fl_lin_f": 3.0 * np.pi * diam * visc,
+            "fl_lin_t": np.pi * diam ** 3 * visc}
+
+
+def fluid_wrenches(model: Model, kin: eng.Kin) -> torch.Tensor:
+    """(E, nl, 6) world-origin wrenches of the dense/viscous medium, the
+    batched form of `engine.fluid_taus`: the COM's 6D velocity in the
+    link frame, quadratic and linear drag per axis, back to the world."""
+    c = _consts(model, kin.like.device)
+    R, com = kin.R, kin.com
+    w_w = kin.v[..., :3]
+    v_w = kin.v[..., 3:] + _cross(w_w, com)
+    Rt = R.transpose(-1, -2)
+    w_l, v_l = _mv(Rt, w_w), _mv(Rt, v_w)
+    frc = -(c["fl_quad_f"] * (v_l.abs() * v_l) + c["fl_lin_f"] * v_l)
+    trq = -(c["fl_quad_t"] * (w_l.abs() * w_l) + c["fl_lin_t"] * w_l)
+    f_w, t_w = _mv(R, frc), _mv(R, trq)
+    return torch.cat([_cross(com, f_w) + t_w, f_w], -1)
+
+
+# ------------------------------------------------------------ contacts
+_ROUND = (SPHERE, CAPSULE, CYLINDER)
+
+
+class CollisionProgram(NamedTuple):
+    """The batched narrow phase compiled from the model's pair list, on
+    one device. Point–plane rows (npp: spheres, capsule and cylinder
+    ends, each a point with a radius) come first, then segment–segment
+    rows (nss: spheres as zero-length segments); per row its geoms,
+    offsets, radii, friction and gains, and the one-hot matrices that
+    send its wrench to its links (+a, −b) and its normal force to its
+    pair."""
+
+    npp: int
+    nss: int
+    pp: Dict[str, torch.Tensor]
+    ss: Dict[str, torch.Tensor]
+    mu: torch.Tensor           # (P,) friction of every row, pp then ss
+    kp: torch.Tensor           # (P,) inertia-scaled stiffness
+    kd: torch.Tensor           # (P,) damping
+    ka: torch.Tensor           # (P,) gravity feed-forward (one side static)
+    la: torch.Tensor           # (P,) link of geom a (nl: the world)
+    lb: torch.Tensor
+    to_links: torch.Tensor     # (P, nl + 1) one-hot(la) − one-hot(lb)
+    to_pairs: torch.Tensor     # (P, npair) one-hot(pair)
+
+
+def _build_program(model: Model, device) -> CollisionProgram:
+    nl = model.nl
+    pp = {k: [] for k in ("geom", "off", "r", "plane")}
+    ss = {k: [] for k in ("geom_a", "geom_b", "hl_a", "hl_b", "r_a", "r_b")}
+    rows = {"pp": [], "ss": []}  # (link_a, link_b, pair, mu) per row
+    for pi, (gi, gj) in enumerate(np.asarray(model.contact_pairs)):
+        a, b = model.geoms[int(gi)], model.geoms[int(gj)]
+        ga, gb = int(gi), int(gj)
+        if a.gtype == PLANE:
+            a, b, ga, gb = b, a, gb, ga
+        mu = max(a.friction, b.friction)
+        if b.gtype == PLANE and a.gtype in _ROUND:
+            r = float(a.size[0])
+            pts = ([(0.0, 0.0, 0.0)] if a.gtype == SPHERE else
+                   [(0.0, 0.0, -float(a.size[1])),
+                    (0.0, 0.0, float(a.size[1]))])
+            for off in pts:
+                pp["geom"].append(ga)
+                pp["off"].append(off)
+                pp["r"].append(r)
+                pp["plane"].append(gb)
+                rows["pp"].append((a.link, b.link, pi, mu))
+        elif a.gtype in _ROUND and b.gtype in _ROUND:
+            ss["geom_a"].append(ga)
+            ss["geom_b"].append(gb)
+            ss["hl_a"].append(0.0 if a.gtype == SPHERE else float(a.size[1]))
+            ss["hl_b"].append(0.0 if b.gtype == SPHERE else float(b.size[1]))
+            ss["r_a"].append(float(a.size[0]))
+            ss["r_b"].append(float(b.size[0]))
+            rows["ss"].append((a.link, b.link, pi, mu))
+        else:
+            kind = ("ellipsoid–plane" if ELLIPSOID in (a.gtype, b.gtype)
+                    and PLANE in (a.gtype, b.gtype) else
+                    "point–box" if BOX in (a.gtype, b.gtype) else
+                    "point–ellipsoid")
+            raise NotImplementedError(
+                f"{kind} contact category (geom types {a.gtype} vs "
+                f"{b.gtype}): " + eng._ROADMAP_PHYSICS)
+    allrows = rows["pp"] + rows["ss"]
+    npair = len(model.contact_pairs)
+    m_eff, _ = eng.constraint_scales(model)
+    k0, b0, imp = eng._soft_gains(model)
+    one_static = np.asarray(
+        [(model.geoms[int(gi)].link < 0) != (model.geoms[int(gj)].link < 0)
+         for gi, gj in model.contact_pairs], np.float64)
+    pair = np.asarray([r[2] for r in allrows], np.int64)
+    la = np.asarray([r[0] if r[0] >= 0 else nl for r in allrows], np.int64)
+    lb = np.asarray([r[1] if r[1] >= 0 else nl for r in allrows], np.int64)
+    P = len(allrows)
+    to_links = np.zeros((P, nl + 1))
+    to_links[np.arange(P), la] += 1.0
+    to_links[np.arange(P), lb] -= 1.0
+    to_pairs = np.zeros((P, npair))
+    to_pairs[np.arange(P), pair] = 1.0
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    idx = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    gains = lambda g: f32(g[pair] if P else np.zeros(0))
+    return CollisionProgram(
+        npp=len(rows["pp"]), nss=len(rows["ss"]),
+        pp={"geom": idx(pp["geom"]), "plane": idx(pp["plane"]),
+            "off": f32(np.reshape(pp["off"], (-1, 3))), "r": f32(pp["r"])},
+        ss={"geom_a": idx(ss["geom_a"]), "geom_b": idx(ss["geom_b"]),
+            **{k: f32(ss[k]) for k in ("hl_a", "hl_b", "r_a", "r_b")}},
+        mu=f32([r[3] for r in allrows]),
+        kp=gains(imp * m_eff * k0), kd=gains(imp * m_eff * b0),
+        ka=gains(imp * m_eff * one_static),
+        la=idx(la), lb=idx(lb), to_links=f32(to_links),
+        to_pairs=f32(to_pairs))
+
+
+_PROGRAMS: dict = {}
+
+
+def collision_program(model: Model, device) -> CollisionProgram:
+    """The model's `CollisionProgram` on `device`, built once."""
+    key = (id(model), str(device))
+    got = _PROGRAMS.get(key)
+    if got is not None and got[0] is model:
+        return got[1]
+    prog = _build_program(model, device)
+    _PROGRAMS[key] = (model, prog)
+    return prog
+
+
+def _contact_depths_points(model: Model, kin: eng.Kin, prog):
+    """The batched narrow phase: depth (E, P), point (E, P, 3) and normal
+    (E, P, 3) of every row, pp rows then ss rows; normals point from
+    geom b toward geom a."""
+    Rg, pg = geom_world(model, kin)
+    depth, point, normal = [], [], []
+    if prog.npp:
+        d = prog.pp
+        x = pg[:, d["geom"]] + _mv(Rg[:, d["geom"]], d["off"])
+        n = Rg[:, d["plane"], :, 2]
+        dist = (n * x).sum(-1) - (n * pg[:, d["plane"]]).sum(-1)
+        depth.append(d["r"] - dist)
+        point.append(x - n * dist[..., None])
+        normal.append(n)
+    if prog.nss:
+        d = prog.ss
+        za = Rg[:, d["geom_a"], :, 2] * d["hl_a"][:, None]
+        zb = Rg[:, d["geom_b"], :, 2] * d["hl_b"][:, None]
+        ca, cb = pg[:, d["geom_a"]], pg[:, d["geom_b"]]
+        a0, b0 = ca - za, cb - zb
+        d1, d2, r = 2.0 * za, 2.0 * zb, a0 - b0
+        aa = (d1 * d1).sum(-1) + 1e-12
+        ee = (d2 * d2).sum(-1) + 1e-12
+        fv = (d2 * r).sum(-1)
+        cc = (d1 * r).sum(-1)
+        bb = (d1 * d2).sum(-1)
+        denom = aa * ee - bb * bb
+        s = torch.clamp((bb * fv - cc * ee) / (denom + 1e-12), 0.0, 1.0)
+        tt = torch.clamp((bb * s + fv) / ee, 0.0, 1.0)
+        s = torch.clamp((bb * tt - cc) / aa, 0.0, 1.0)
+        pa = a0 + d1 * s[..., None]
+        pb = b0 + d2 * tt[..., None]
+        delta = pa - pb
+        dist = torch.sqrt((delta * delta).sum(-1) + 1e-12)
+        n = delta / (dist + 1e-9)[..., None]
+        dep = (d["r_a"] + d["r_b"]) - dist
+        depth.append(dep)
+        point.append(pb + n * (d["r_b"] - dep / 2)[..., None])
+        normal.append(n)
+    if len(depth) == 1:
+        return depth[0], point[0], normal[0]
+    return torch.cat(depth, 1), torch.cat(point, 1), torch.cat(normal, 1)
+
+
+def contact_wrenches_batched(model: Model, kin: eng.Kin):
+    """((E, nl, 6) contact wrenches, (E, npair) normal force per pair):
+    the inertia-scaled penalty law of the scalar path (spring, damper,
+    gravity feed-forward where one side is static, regularised Coulomb
+    friction) over every row at once."""
+    prog = collision_program(model, kin.like.device)
+    E = kin.like.shape[0]
+    depth, x, n = _contact_depths_points(model, kin, prog)
+    v_pad = torch.cat([kin.v, kin.v.new_zeros(E, 1, 6)], 1)
+    va, vb = v_pad[:, prog.la], v_pad[:, prog.lb]
+    v_rel = (_cross(va[..., :3], x) + va[..., 3:]) - (
+        _cross(vb[..., :3], x) + vb[..., 3:])
+    vn = (v_rel * n).sum(-1)
+    fn = prog.kp * depth - prog.kd * vn
+    g = [float(np.float32(x)) for x in model.gravity]
+    if any(g):  # −g·n: gravity load along the normal (one side static)
+        fn = fn - prog.ka * sum(n[..., k] * g[k] for k in range(3) if g[k])
+    fn = torch.clamp(fn, min=0.0) * (depth > 0).to(_f)
+    vt = v_rel - n * vn[..., None]
+    vt_norm = torch.sqrt((vt * vt).sum(-1)) + 1e-6
+    ft_scale = -prog.mu * fn * torch.tanh(vt_norm / 0.01) / vt_norm
+    f3 = n * fn[..., None] + vt * ft_scale[..., None]
+    wr = torch.cat([_cross(x, f3), f3], -1)
+    F = torch.einsum("pl,epk->elk", prog.to_links, wr)
+    return F[:, :model.nl], fn @ prog.to_pairs
+
+
+def penetration_depths_batched(model: Model, qpos) -> torch.Tensor:
+    """Every contact row's depth at configurations qpos (E, nv), with a
+    −1 column in front: (E, 1 + P) (the batched `max_penetration`)."""
+    q = qpos.float()
+    kin = eng.forward_kinematics(model, q, torch.zeros_like(q))
+    prog = collision_program(model, q.device)
+    lead = torch.full_like(q[:, :1], -1.0)
+    if not prog.npp + prog.nss:
+        return lead
+    return torch.cat([lead, _contact_depths_points(model, kin, prog)[0]], 1)
+
+
+# ------------------------------------------------------ spatial tendons
+def tendon_wrenches(model: Model, kin: eng.Kin) -> torch.Tensor:
+    """(E, nl, 6) wrenches of the limited spatial tendons (the one-sided
+    stiff springs of `engine.tendon_taus`); a site on link < 0 is fixed
+    in the world."""
+    E, nl = kin.like.shape[0], model.nl
+    R, p, v = kin.R, kin.p, kin.v
+    dev = kin.like.device
+    links, wrenches = [], []
+    for t in model.tendons:
+        def site(link, pos):
+            pos = torch.as_tensor(np.asarray(pos, np.float32), device=dev)
+            if link < 0:
+                return pos.expand(E, 3), torch.zeros(E, 3, device=dev)
+            x = p[:, link] + _mv(R[:, link], pos)
+            return x, _cross(v[:, link, :3], x) + v[:, link, 3:]
+
+        (pa, va), (pb, vb) = site(t.link_a, t.pos_a), site(t.link_b, t.pos_b)
+        delta = pa - pb
+        length = torch.sqrt((delta * delta).sum(-1) + 1e-12) + 1e-9
+        dirn = delta / length[..., None]
+        stretch = torch.clamp(length - float(t.range[1]), min=0.0)
+        rate = ((va - vb) * dirn).sum(-1)
+        fmag = t.stiffness * stretch + torch.where(
+            stretch > 0, t.damping * rate, torch.zeros_like(rate))
+        f3 = dirn * -torch.clamp(fmag, min=0.0)[..., None]
+        for link, sign, x in ((t.link_a, 1.0, pa), (t.link_b, -1.0, pb)):
+            if link >= 0:
+                links.append(link)
+                wrenches.append(sign * torch.cat([_cross(x, f3), f3], -1))
+    if not links:
+        return kin.v.new_zeros(E, nl, 6)
+    onehot = np.zeros((len(links), nl), np.float32)
+    onehot[np.arange(len(links)), links] = 1.0
+    return torch.einsum("tl,etk->elk", torch.as_tensor(onehot, device=dev),
+                        torch.stack(wrenches, 1))
+
+
+# ------------------------------------------------------------- dynamics
+def forward_dynamics(model: Model, qpos, qvel, ctrl, anc=None):
+    """(qacc (E, nv), per-pair normal forces (E, npair)): the dense-path
+    twin of `engine._forward_dynamics`. Implicit dof damping (h·D in the
+    matrix) only under Euler, as in the JAX path; the 1e-10 shift stays
+    small (fish fins have min-eigenvalues near 1e-7)."""
+    c = _consts(model, qpos.device)
+    anc_f = c["anc_f"]
+    kin = eng.forward_kinematics(model, qpos, qvel)
+    I6 = spatial_inertias(model, kin)
+    M = mass_matrix(model, kin, I6, anc_f)
+    C = bias_forces(model, kin, I6, qvel, anc_f)
+    tau = eng.applied_taus(model, qpos, qvel, ctrl)
+    F = None
+    if model.tendons:
+        F = tendon_wrenches(model, kin)
+    if model.density > 0 or model.viscosity > 0:
+        Ff = fluid_wrenches(model, kin)
+        F = Ff if F is None else F + Ff
+    if len(model.contact_pairs):
+        Fc, pair_f = contact_wrenches_batched(model, kin)
+        F = Fc if F is None else F + Fc
+    else:
+        pair_f = qpos.new_zeros(qpos.shape[:-1] + (0,))
+    if F is not None:
+        tau = tau + project_wrenches(kin, anc_f, F)
+    L, _ = torch.linalg.cholesky_ex(M + c["shift"])
+    qacc = torch.cholesky_solve((tau - C)[..., None], L)[..., 0]
+    return qacc, pair_f
+
+
+def implicit_contact_stage(*args, **kwargs):
+    """The JAX path's velocity-level implicit contact solve (hopper,
+    manipulator, stacker): not ported."""
+    raise NotImplementedError("implicit contact solver: "
+                              + eng._ROADMAP_PHYSICS)
+
+
+def hfield_wrenches(*args, **kwargs):
+    """Heightfield contacts (quadruped's terrain): not ported."""
+    raise NotImplementedError("heightfield contacts: "
+                              + eng._ROADMAP_PHYSICS)

@@ -4,8 +4,10 @@ Counterpart of the scalar-SoA path of `sgqn_carla_tpu/physics/engine.py`
 (`forward_kinematics`, CRBA `_mass_matrix_soa`, RNEA `_bias_forces_soa`, the
 unrolled Cholesky `_solve_spd`, penalty contacts of sphere/capsule/cylinder
 against planes and against each other (closest segment points), limited
-spatial tendons, explicit joint limits, semi-implicit Euler with implicit
-dof damping, and RK4).
+spatial tendons, the inertia-box fluid model, explicit joint limits, fixed
+tendons and position servos, semi-implicit Euler with implicit dof damping,
+and RK4). Models of nl ≥ 12 links take the dense path instead
+(`physics/dense.py`), as the JAX engine dispatches them.
 
 Every SoA scalar of the JAX code is an `(E,)` tensor here — one entry per
 env — or a Python float where the JAX code traced a constant. The static
@@ -15,14 +17,18 @@ branch on tensor values: the sequence can be captured in a CUDA graph as it
 stands. In eager mode every op is one kernel launch, which bounds the speed
 on the card (root PERF.md records the measured time per env step).
 
+Every entry point runs its matmuls in true f32 (`f32_matmuls`), whatever
+the caller set globally: TF32 products break the dense path's fish
+dynamics, as bf16 ones did on the TPU.
+
 Models outside the ported domains raise `NotImplementedError` naming the
-ROADMAP item that ports them: the dense path (nl ≥ 12), heightfields,
-fixed tendons, fluid forces, implicit contacts/limits, and box or ellipsoid
-contact pairs.
+ROADMAP item that ports them: heightfields, implicit contacts/limits, and
+box or ellipsoid contact pairs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, NamedTuple
 
 import numpy as np
@@ -30,7 +36,7 @@ import torch
 
 from sgqn_carla_tpu_torch.ops import v3
 from sgqn_carla_tpu_torch.physics.model import (
-    CAPSULE, CYLINDER, HINGE, PLANE, SPHERE, Model,
+    BOX, CAPSULE, CYLINDER, ELLIPSOID, HFIELD, HINGE, PLANE, SPHERE, Model,
 )
 
 _ROADMAP_PHYSICS = "ROADMAP Queue 1, 'Remaining physics'"
@@ -38,23 +44,99 @@ _ROADMAP_PHYSICS = "ROADMAP Queue 1, 'Remaining physics'"
 _DENSE_NL = 12
 
 
+def f32_matmuls(fn):
+    """Run `fn` with true-f32 matmuls (no TF32), restoring the caller's
+    setting after: the dense path's mass matrix, Cholesky and wrench
+    products must stay f32 (the JAX engine pins them the same way)."""
+    @functools.wraps(fn)
+    def wrapped(*a, **k):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return wrapped
+
+
+class _LazyLinks:
+    """A per-link sequence whose entries are made on first use (the dense
+    Kin's component views: a task reads a few links, not all)."""
+
+    def __init__(self, n: int, make):
+        self._items = [None] * n
+        self._made = [False] * n
+        self._make = make
+
+    def __len__(self):
+        return len(self._items)
+
+    def __getitem__(self, i):
+        if not self._made[i]:
+            self._items[i] = self._make(i)
+            self._made[i] = True
+        return self._items[i]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
 class Kin:
-    """Forward-kinematics caches (SoA form only).
+    """Forward-kinematics caches, in one of two forms.
 
-    soa = (q, p, S, v, com): q[i] a 4-tuple quaternion, p[i]/com[i] vec3
-    tuples, S[i]/v[i] spatial (w3, v3) pairs; `basis[i]` the world rotation
+    Scalar form (nl < 12): soa = (q, p, S, v, com) with q[i] a 4-tuple
+    quaternion, p[i]/com[i] vec3 tuples, S[i]/v[i] spatial (w3, v3) pairs
+    of (E,) components or Python floats; `basis[i]` the world rotation
     columns (ex, ey, ez) of link i. The JAX Kin also carries stacked array
-    views; eager torch would pay launches for them on every substep, so the
-    port builds them on demand (`R`, `p`)."""
+    views; eager torch would pay launches for them on every substep, so
+    the port builds them on demand (`R`, `p`, `S`, `v`, `com`).
 
-    def __init__(self, soa, basis, like: torch.Tensor):
-        self.soa = soa
-        self.basis = basis
+    Dense form (`dense.forward_kinematics_scan`): the stacked tensors R
+    (E, nl, 3, 3), p (E, nl, 3), S and v (E, nl, 6), com (E, nl, 3); `soa`
+    and `basis` are views of them, made per link on first use (its
+    quaternions are not formed: q[i] is None)."""
+
+    def __init__(self, soa=None, basis=None, like: torch.Tensor = None, *,
+                 R=None, p=None, S=None, v=None, com=None):
+        self._soa = soa
+        self._basis = basis
         self.like = like  # an (E,) tensor: batch shape, dtype, device
+        self.dense = R is not None
+        self._R, self._p, self._S, self._v, self._com = R, p, S, v, com
+
+    @property
+    def soa(self):
+        if self._soa is None:
+            vec = lambda a, i, o=0: tuple(a[:, i, o + k] for k in range(3))
+            six = lambda a: lambda i: (vec(a, i), vec(a, i, 3))
+            self._soa = (
+                _LazyLinks(self._p.shape[1], lambda i: None),
+                _LazyLinks(self._p.shape[1], lambda i: vec(self._p, i)),
+                _LazyLinks(self._p.shape[1], six(self._S)),
+                _LazyLinks(self._p.shape[1], six(self._v)),
+                _LazyLinks(self._p.shape[1], lambda i: vec(self._com, i)))
+        return self._soa
+
+    @property
+    def basis(self):
+        if self._basis is None:
+            R = self._R
+            self._basis = _LazyLinks(R.shape[1], lambda i: tuple(
+                tuple(R[:, i, r, c] for r in range(3)) for c in range(3)))
+        return self._basis
+
+    def _stack(self, k: int, six: bool = False) -> torch.Tensor:
+        if six:
+            return torch.stack([torch.cat([v3.stack(s[0], self.like),
+                                           v3.stack(s[1], self.like)], -1)
+                                for s in self.soa[k]], 1)
+        return torch.stack([v3.stack(x, self.like) for x in self.soa[k]], 1)
 
     @property
     def R(self) -> torch.Tensor:
         """(E, nl, 3, 3) link orientations."""
+        if self.dense:
+            return self._R
         return torch.stack([
             torch.stack([v3.stack(b[c], self.like, -1) for c in range(3)], -1)
             for b in self.basis], 1)
@@ -62,7 +144,22 @@ class Kin:
     @property
     def p(self) -> torch.Tensor:
         """(E, nl, 3) link frame origins."""
-        return torch.stack([v3.stack(p, self.like) for p in self.soa[1]], 1)
+        return self._p if self.dense else self._stack(1)
+
+    @property
+    def S(self) -> torch.Tensor:
+        """(E, nl, 6) joint motion subspaces (angular, linear)."""
+        return self._S if self.dense else self._stack(2, True)
+
+    @property
+    def v(self) -> torch.Tensor:
+        """(E, nl, 6) link spatial velocities."""
+        return self._v if self.dense else self._stack(3, True)
+
+    @property
+    def com(self) -> torch.Tensor:
+        """(E, nl, 3) link COM positions."""
+        return self._com if self.dense else self._stack(4)
 
 
 class StepOut(NamedTuple):
@@ -71,21 +168,28 @@ class StepOut(NamedTuple):
     contact_force: torch.Tensor  # (E, npair) max normal force over substeps
 
 
+_CHECKED: dict = {}
+
+
 def check_supported(model: Model):
-    """Raise for the model features the port does not carry yet."""
-    if model.nl >= _DENSE_NL:
-        raise NotImplementedError(
-            f"dense dynamics path (nl={model.nl} >= {_DENSE_NL}): "
-            + _ROADMAP_PHYSICS)
+    """Raise for the model features the port does not carry yet:
+    heightfields, implicit contacts and limits, box or ellipsoid contact
+    pairs. Checked once per model."""
+    got = _CHECKED.get(id(model))
+    if got is not None and got is model:
+        return
     if model.hfield_geom >= 0:
         raise NotImplementedError("heightfield terrain: " + _ROADMAP_PHYSICS)
-    if model.ft_stiff is not None and len(model.ft_stiff):
-        raise NotImplementedError("fixed tendons: " + _ROADMAP_PHYSICS)
-    if model.density > 0 or model.viscosity > 0:
-        raise NotImplementedError("fluid forces: " + _ROADMAP_PHYSICS)
     if model.implicit_contacts or model.implicit_limits:
         raise NotImplementedError(
             "implicit contacts/limits: " + _ROADMAP_PHYSICS)
+    for gi, gj in model.contact_pairs:
+        types = {model.geoms[int(gi)].gtype, model.geoms[int(gj)].gtype}
+        if types & {BOX, ELLIPSOID, HFIELD}:
+            raise NotImplementedError(
+                f"box or ellipsoid contact pair (geom types {sorted(types)})"
+                ": " + _ROADMAP_PHYSICS)
+    _CHECKED[id(model)] = model
 
 
 def _ancestors(model: Model) -> np.ndarray:
@@ -136,6 +240,9 @@ def _consts(model: Model, device) -> dict:
         "frictionloss": t(model.jnt_frictionloss),
         "jnt_ref": t(model.jnt_ref),
     }
+    if model.ft_moment is not None and len(model.ft_stiff):
+        out["ft_moment"] = t(model.ft_moment)
+        out["ft_stiff"] = t(model.ft_stiff)
     if model.nu:
         out["moment"] = t(model.act_moment)
         out["ctrl_lo"] = t(model.act_ctrlrange[:, 0])
@@ -147,12 +254,15 @@ def _consts(model: Model, device) -> dict:
     return out
 
 
+@f32_matmuls
 def forward_kinematics(model: Model, qpos: torch.Tensor,
                        qvel: torch.Tensor) -> Kin:
-    """Sequential FK over the static chain. qpos, qvel: (E, nl)."""
+    """Sequential FK over the static chain. qpos, qvel: (E, nl). Trees of
+    nl ≥ 12 links take the dense path's FK (stacked tensors)."""
     if model.nl >= _DENSE_NL:
-        raise NotImplementedError("scan-based FK of the dense path: "
-                                  + _ROADMAP_PHYSICS)
+        from sgqn_carla_tpu_torch.physics import dense
+
+        return dense.forward_kinematics_scan(model, qpos, qvel)
     nl = model.nl
     theta = qpos.float()
     if np.any(model.jnt_ref):
@@ -262,10 +372,8 @@ def _spi_apply(I, sv):
 
 def _solve_spd(M, b, n: int):
     """SPD solve by the unrolled Cholesky (nested lists of (E,) tensors or
-    Python floats). The JAX engine's dense cho_solve branch (n ≥ 12) belongs
-    to the dense path and is not ported."""
-    if n >= _DENSE_NL:
-        raise NotImplementedError("dense Cholesky solve: " + _ROADMAP_PHYSICS)
+    Python floats). Models of n ≥ 12 dofs never come here: `step` sends
+    them to the dense path, whose solve is the JAX engine's cho_solve."""
     L = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
@@ -354,8 +462,13 @@ def _geom_pose(model: Model, kin: Kin, g):
     return qg, bg, pw
 
 
+@f32_matmuls
 def geom_world(model: Model, kin: Kin):
     """World pose of every geom: Rg (E, G, 3, 3) and pg (E, G, 3)."""
+    if kin.dense:
+        from sgqn_carla_tpu_torch.physics import dense
+
+        return dense.geom_world(model, kin)
     comps_R, comps_p = [], []
     for g in model.geoms:
         qg, bg, pw = _geom_pose(model, kin, g)
@@ -669,6 +782,72 @@ def tendon_taus(model: Model, kin: Kin, anc: np.ndarray, tau):
     return tau
 
 
+def fluid_box(model: Model, i: int) -> np.ndarray:
+    """FULL side lengths of link i's equivalent inertia box (host numpy):
+    I = m/12·(s_j² + s_k²) ⇒ s_i = √(6(I_j + I_k − I_i)/m), the
+    mj_inertiaBoxFluidModel convention (half sizes under-drag by 4×
+    linearly and 32× angularly)."""
+    Idiag = np.diag(np.asarray(model.link_inertia[i], np.float64))
+    return np.sqrt(np.maximum(
+        1e-12, (Idiag.sum() - 2.0 * Idiag) * 6.0 / float(model.link_mass[i])))
+
+
+def _abs_mul(x):
+    """|x|·x of a component (tensor or Python float)."""
+    return abs(x) * x if isinstance(x, float) else x.abs() * x
+
+
+def fluid_taus(model: Model, kin: Kin, anc: np.ndarray, tau):
+    """Drag of a dense/viscous medium, MuJoCo's inertia-box model
+    (swimmer, fish: `<option density=...>`): per link with mass, the COM's
+    6D velocity in the link frame, quadratic drag per axis (density) and
+    linear drag (viscosity), rotated back to the world and projected
+    through the joint subspaces of the link's support path. Adds to the nv
+    list `tau`."""
+    rho = float(model.density)
+    visc = float(model.viscosity)
+    Ss, vs, coms = kin.soa[2], kin.soa[3], kin.soa[4]
+    for i in range(model.nl):
+        if float(model.link_mass[i]) <= 1e-9:
+            continue
+        box = fluid_box(model, i)
+        basis = kin.basis[i]
+        w_w = vs[i][0]
+        v_w = v3.add(vs[i][1], v3.cross(w_w, coms[i]))
+        # link-frame components: R^T x = (ex·x, ey·x, ez·x)
+        w_l = tuple(v3.dot(basis[j], w_w) for j in range(3))
+        v_l = tuple(v3.dot(basis[j], v_w) for j in range(3))
+        frc = [0.0, 0.0, 0.0]
+        trq = [0.0, 0.0, 0.0]
+        if visc > 0:
+            diam = float(box.mean())
+            for j in range(3):
+                trq[j] = v3.sub2(trq[j], v3.mul(
+                    float(np.pi * diam ** 3 * visc), w_l[j]))
+                frc[j] = v3.sub2(frc[j], v3.mul(
+                    float(3.0 * np.pi * diam * visc), v_l[j]))
+        if rho > 0:
+            for j in range(3):
+                b1, b2 = box[(j + 1) % 3], box[(j + 2) % 3]
+                frc[j] = v3.sub2(frc[j], v3.mul(
+                    float(0.5 * rho * b1 * b2), _abs_mul(v_l[j])))
+                trq[j] = v3.sub2(trq[j], v3.mul(
+                    float(rho * box[j] * (b1 ** 4 + b2 ** 4) / 64.0),
+                    _abs_mul(w_l[j])))
+        # world frame: R x = Σ_j basis[j]·x_j
+        f_w = (0.0, 0.0, 0.0)
+        t_w = (0.0, 0.0, 0.0)
+        for j in range(3):
+            f_w = v3.add(f_w, v3.scale(basis[j], frc[j]))
+            t_w = v3.add(t_w, v3.scale(basis[j], trq[j]))
+        fx = v3.add(v3.cross(coms[i], f_w), t_w)
+        for j in range(model.nl):
+            if anc[i, j]:
+                tau[j] = v3.add2(tau[j], v3.add2(v3.dot(Ss[j][0], fx),
+                                                 v3.dot(Ss[j][1], f_w)))
+    return tau
+
+
 def _limit_gains(model: Model):
     """Per-dof limit spring/damper of the explicit path: solref gains
     scaled by the joint-space effective inertia (host numpy)."""
@@ -691,8 +870,10 @@ def limit_taus(model: Model, qpos, qvel):
 
 
 def applied_taus(model: Model, qpos, qvel, ctrl):
-    """Joint-space applied torques (E, nl): actuators (τ = Mᵀ·f), dof
-    damping/stiffness/friction loss and explicit limits."""
+    """Joint-space applied torques (E, nl): actuators (τ = Mᵀ·f; position
+    servos f = kp·(ctrl − L), L = M·q), passive fixed-tendon springs, dof
+    damping/stiffness/friction loss and explicit limits. Shared by the
+    scalar and the dense path."""
     c = _consts(model, qpos.device)
     tau_vec = torch.zeros_like(qpos)
     if model.nu:
@@ -705,6 +886,10 @@ def applied_taus(model: Model, qpos, qvel, ctrl):
         else:
             force = c_clip
         tau_vec = force @ moment
+    if "ft_moment" in c:
+        # passive fixed-tendon springs (fish's fins_sym)
+        ftm = c["ft_moment"]
+        tau_vec = tau_vec - (c["ft_stiff"] * (qpos @ ftm.T)) @ ftm
     tau_vec = tau_vec - c["damping"] * qvel
     if np.any(model.jnt_stiffness):
         tau_vec = tau_vec - c["stiffness"] * (qpos - c["springref"])
@@ -730,6 +915,8 @@ def _forward_dynamics(model: Model, qpos, qvel, ctrl, anc):
     tau = list(applied_taus(model, qpos, qvel, ctrl).unbind(-1))
     if model.tendons:
         tau = tendon_taus(model, kin, anc, tau)
+    if model.density > 0 or model.viscosity > 0:
+        tau = fluid_taus(model, kin, anc, tau)
     if len(model.contact_pairs):
         gw = _geom_world_soa(model, kin)
         tau_c, pair_f = contact_taus(model, kin, gw, anc)
@@ -741,12 +928,19 @@ def _forward_dynamics(model: Model, qpos, qvel, ctrl, anc):
     return torch.stack([v3.full(a, kin.like) for a in qacc], -1), pair_f
 
 
+@f32_matmuls
 def max_penetration(model: Model, qpos: torch.Tensor) -> torch.Tensor:
     """Deepest contact penetration of each configuration (≤ 0: free), for
-    qpos (..., nv) → (...). Backs finger's collision-free episode init
-    (the JAX engine's `max_penetration`, vmapped over the batch)."""
+    qpos (..., nv) → (...). Backs finger's and humanoid's collision-free
+    episode init (the JAX engine's `max_penetration`, vmapped over the
+    batch; nl ≥ 12: `dense.penetration_depths_batched`)."""
     check_supported(model)
     q = qpos.float().reshape(-1, model.nv)
+    if model.nl >= _DENSE_NL:
+        from sgqn_carla_tpu_torch.physics import dense
+
+        return dense.penetration_depths_batched(model, q).amax(-1).reshape(
+            qpos.shape[:-1])
     kin = forward_kinematics(model, q, torch.zeros_like(q))
     gw = _geom_world_soa(model, kin)
     depths = [torch.full_like(kin.like, -1.0)]
@@ -756,36 +950,44 @@ def max_penetration(model: Model, qpos: torch.Tensor) -> torch.Tensor:
     return torch.stack(depths, -1).amax(-1).reshape(qpos.shape[:-1])
 
 
+@f32_matmuls
 def step(model: Model, qpos, qvel, ctrl, hfield=None) -> StepOut:
     """One substep of `model.timestep` seconds for a batch: qpos, qvel
     (E, nl), ctrl (E, nu). Semi-implicit Euler, or RK4 for models that ask
-    for it (contact_force from the first stage, as in the JAX engine)."""
+    for it (contact_force from the first stage, as in the JAX engine).
+    Trees of nl ≥ 12 links take the dense path's dynamics
+    (`dense.forward_dynamics`), the same physics as batched matmuls."""
     if hfield is not None:
         raise NotImplementedError("heightfield contacts: " + _ROADMAP_PHYSICS)
     check_supported(model)
+    if model.nl >= _DENSE_NL:
+        from sgqn_carla_tpu_torch.physics import dense
+
+        fwd = dense.forward_dynamics
+    else:
+        fwd = _forward_dynamics
     anc = _ancestors(model)
     h = model.timestep
     qpos = qpos.float()
     qvel = qvel.float()
     if model.integrator == "rk4":
-        k1a, pf = _forward_dynamics(model, qpos, qvel, ctrl, anc)
+        k1a, pf = fwd(model, qpos, qvel, ctrl, anc)
         k2v = qvel + 0.5 * h * k1a
-        k2a, _ = _forward_dynamics(model, qpos + 0.5 * h * qvel, k2v, ctrl,
-                                   anc)
+        k2a, _ = fwd(model, qpos + 0.5 * h * qvel, k2v, ctrl, anc)
         k3v = qvel + 0.5 * h * k2a
-        k3a, _ = _forward_dynamics(model, qpos + 0.5 * h * k2v, k3v, ctrl,
-                                   anc)
+        k3a, _ = fwd(model, qpos + 0.5 * h * k2v, k3v, ctrl, anc)
         k4v = qvel + h * k3a
-        k4a, _ = _forward_dynamics(model, qpos + h * k3v, k4v, ctrl, anc)
+        k4a, _ = fwd(model, qpos + h * k3v, k4v, ctrl, anc)
         qvel_n = qvel + h / 6 * (k1a + 2 * k2a + 2 * k3a + k4a)
         qpos_n = qpos + h / 6 * (qvel + 2 * k2v + 2 * k3v + k4v)
         return StepOut(qpos_n, qvel_n, pf)
-    qacc, pf = _forward_dynamics(model, qpos, qvel, ctrl, anc)
+    qacc, pf = fwd(model, qpos, qvel, ctrl, anc)
     qvel_n = qvel + h * qacc
     qpos_n = qpos + h * qvel_n
     return StepOut(qpos_n, qvel_n, pf)
 
 
+@f32_matmuls
 def n_steps(model: Model, qpos, qvel, ctrl, n: int, hfield=None) -> StepOut:
     """`n` substeps under one held control (a Python loop in place of
     lax.scan); contact_force is the per-pair max over the substeps."""
@@ -805,8 +1007,26 @@ def _subtree_weights(model: Model, root_dof: int):
     return w, max(w.sum(), 1e-12)
 
 
+_WEIGHTS_CACHE: dict = {}
+
+
+def _subtree_mean(model: Model, root_dof: int, x: torch.Tensor):
+    """Σ_i w_i·x_i / Σ w over the links of a dense Kin's x (E, nl, 3), the
+    weights (link masses in the subtree) on the device made once."""
+    key = (id(model), root_dof, str(x.device))
+    got = _WEIGHTS_CACHE.get(key)
+    if got is None or got[0] is not model:
+        w, total = _subtree_weights(model, root_dof)
+        got = (model, torch.as_tensor(w / total, dtype=torch.float32,
+                                      device=x.device)[:, None])
+        _WEIGHTS_CACHE[key] = got
+    return (x * got[1]).sum(1)
+
+
 def subtree_com(model: Model, kin: Kin, root_dof: int) -> torch.Tensor:
     """(E, 3) mass-weighted COM of the subtree rooted at link `root_dof`."""
+    if kin.dense:
+        return _subtree_mean(model, root_dof, kin.com)
     w, total = _subtree_weights(model, root_dof)
     coms = kin.soa[4]
     acc = (0.0, 0.0, 0.0)
@@ -819,6 +1039,10 @@ def subtree_com(model: Model, kin: Kin, root_dof: int) -> torch.Tensor:
 def subtree_linvel(model: Model, kin: Kin, root_dof: int) -> torch.Tensor:
     """(E, 3) mass-weighted COM velocity of the subtree rooted at link
     `root_dof` (MuJoCo `subtreelinvel`)."""
+    if kin.dense:
+        v = kin.v
+        vcom = torch.linalg.cross(v[..., :3], kin.com, dim=-1) + v[..., 3:]
+        return _subtree_mean(model, root_dof, vcom)
     w, total = _subtree_weights(model, root_dof)
     vs, coms = kin.soa[3], kin.soa[4]
     acc = (0.0, 0.0, 0.0)

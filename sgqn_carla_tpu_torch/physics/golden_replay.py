@@ -6,8 +6,13 @@ resulting qpos per control step. `replay` starts the port's task from that
 state, steps it through the actions and returns the largest qpos
 deviation within each horizon of `BOUNDS`, the bounds the JAX engine is
 held to (`tests/test_parity.py`: f32 round-off for the contact-free
-domains, the measured penalty-solver deviation for the contact-rich ones).
-Shared by the port's parity tests and `chip_smoke.py`.
+domains, the measured penalty-solver or fluid deviation for the others).
+Joints map by name; a free (quaternion) root of the recording maps onto
+the port's slide×3 + hinge×3 root through `quat_to_euler_xyz`, from zero
+angular velocity only (Euler rates are not angular velocity), and is left
+out of the comparison. lqr's linear system takes the recording's
+stiffnesses (`TASK_KWARGS`). Shared by the port's parity tests and
+`chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from sgqn_carla_tpu_torch.physics.domains import load
+from sgqn_carla_tpu_torch.physics.math3d import quat_to_euler_xyz
 from sgqn_carla_tpu_torch.physics.task import PhysState
 
 # (domain, task) -> [(horizon in control steps, max |Δqpos|), ...]
@@ -29,26 +35,70 @@ BOUNDS = {
     ("cheetah", "run"): [(10, 0.2), (25, 0.5)],
     ("finger", "spin"): [(10, 0.05), (25, 0.8)],
     ("ball_in_cup", "catch"): [(10, 1e-3), (25, 0.2)],
+    ("pendulum", "swingup"): [(100, 1e-4)],
+    ("acrobot", "swingup"): [(100, 1e-4)],
+    ("point_mass", "easy"): [(100, 1e-4)],
+    ("lqr", "lqr_2_1"): [(100, 1e-4)],
+    ("lqr", "lqr_6_2"): [(100, 1e-4)],
+    ("swimmer", "swimmer6"): [(10, 1e-3), (50, 0.1)],
+    ("fish", "upright"): [(10, 0.1), (25, 0.5)],
+    ("humanoid", "stand"): [(5, 0.3), (10, 1.0)],
 }
+
+# per-recording task kwargs: lqr's stiffnesses, drawn from the recording's
+# seed at model build time
+TASK_KWARGS = {
+    ("lqr", "lqr_2_1"): lambda g: {"stiffness": np.asarray(g["aux_stiffness"])},
+    ("lqr", "lqr_6_2"): lambda g: {"stiffness": np.asarray(g["aux_stiffness"])},
+}
+
+
+def map_state(g, model):
+    """The recording's initial (qpos, qvel) in the port's joint order, and
+    the indices of the joints shared by name: (qpos, qvel, golden
+    indices, port indices)."""
+    jn = list(model.joint_names)
+    qpos = np.zeros(model.nv)
+    qvel = np.zeros(model.nv)
+    gq, gv = np.asarray(g["qpos"][0]), np.asarray(g["qvel"][0])
+    shared_g, shared_ours = [], []
+    qi = vi = 0
+    for name in (str(x) for x in g["qpos_names"]):
+        if name in jn:
+            qpos[jn.index(name)] = gq[qi]
+            qvel[jn.index(name)] = gv[vi]
+            shared_g.append(qi)
+            shared_ours.append(jn.index(name))
+            qi += 1
+            vi += 1
+            continue
+        # a free root, e.g. "root": xyz, then the quaternion (w, x, y, z)
+        base = jn.index(f"{name}_x")
+        qpos[base:base + 3] = gq[qi:qi + 3]
+        quat = torch.as_tensor(gq[qi + 3:qi + 7], dtype=torch.float64)
+        qpos[base + 3:base + 6] = quat_to_euler_xyz(quat).numpy()
+        qvel[base:base + 3] = gv[vi:vi + 3]
+        if np.abs(gv[vi + 3:vi + 6]).max() >= 1e-9:
+            raise ValueError("a free root must start from zero angular "
+                             "velocity (Euler rates are not mapped)")
+        qi += 7
+        vi += 6
+    return qpos, qvel, np.asarray(shared_g), np.asarray(shared_ours)
 
 
 def replay(domain: str, task_name: str, path: str, device="cpu") -> Dict:
     """{"ok", "finite", "horizons": [[horizon, bound, max |Δqpos|], ...]}:
     the port against the recording at `path`, one env on `device`."""
     g = np.load(path)
-    task = load(domain, task_name)
+    kwargs = TASK_KWARGS.get((domain, task_name), lambda g: {})(g)
+    task = load(domain, task_name, **kwargs)
     model = task.model
     if abs(model.timestep * task.n_sub_steps
            - float(g["control_timestep"])) > 1e-9:
         raise ValueError("control timestep differs from the recording's")
-    jn = list(model.joint_names)
-    idx = [jn.index(str(n)) for n in g["qpos_names"]]
-    qpos = np.zeros((1, model.nv), np.float32)
-    qvel = np.zeros((1, model.nv), np.float32)
-    qpos[0, idx] = g["qpos"][0]
-    qvel[0, idx] = g["qvel"][0]
+    qpos, qvel, shared_g, idx = map_state(g, model)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    state = PhysState(t(qpos), t(qvel),
+    state = PhysState(t(qpos[None]), t(qvel[None]),
                       t(np.zeros((1, len(model.contact_pairs)))))
     horizons = BOUNDS[(domain, task_name)]
     T = max(h for h, _ in horizons)
@@ -57,8 +107,8 @@ def replay(domain: str, task_name: str, path: str, device="cpu") -> Dict:
     for a in actions:
         state = task.step(state, a[None])
         out.append(state.qpos)
-    ours = torch.cat(out).cpu().numpy().astype(np.float64)[:, idx]
-    diff = np.abs(ours - np.asarray(g["qpos"])[:T + 1])
+    ours = torch.cat(out).cpu().numpy().astype(np.float64)
+    diff = np.abs(ours[:, idx] - np.asarray(g["qpos"])[:T + 1, shared_g])
     finite = bool(np.isfinite(ours).all())
     rows = [[h, tol, float(diff[:h + 1].max())] for h, tol in horizons]
     return {"ok": finite and all(err < tol for _, tol, err in rows),

@@ -1,9 +1,10 @@
-"""Quaternion helpers the port's walker slice needs.
+"""Quaternion helpers of the port's physics.
 
 Counterparts of `sgqn_carla_tpu/physics/math3d.py`: `zaxis_to_quat_np`
-(host numpy, used by the model builder) and `quat_to_mat` (torch). The 6D
-spatial algebra of the JAX module is not needed: the engine works on scalar
-components (ops/v3.py).
+(host numpy, used by `ModelBuilder`), `quat_to_mat` and
+`quat_to_euler_xyz` (torch, batched). The 6D spatial algebra of the JAX
+module is not needed: the scalar engine works on components (ops/v3.py),
+the dense path on stacked (E, nl, 6) arrays (physics/dense.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,18 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """Intrinsic x-y-z Euler angles (a, b, c), R = Rx(a)·Ry(b)·Rz(c), of
+    unit quaternions (..., 4) → (..., 3): the chart of ModelBuilder's
+    `add_free_root` hinge triplet (a random root orientation becomes the
+    root hinge angles)."""
+    R = quat_to_mat(q)
+    b = torch.asin(torch.clamp(R[..., 0, 2], -1.0, 1.0))
+    c = torch.atan2(-R[..., 0, 1], R[..., 0, 0])
+    a = torch.atan2(-R[..., 1, 2], R[..., 2, 2])
+    return torch.stack([a, b, c], -1)
 
 
 def zaxis_to_quat_np(z):

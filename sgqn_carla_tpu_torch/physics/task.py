@@ -7,6 +7,8 @@ its leading dimension, and episode initialisation draws from a
   init(gen, num_envs)     -> PhysState with (E, ...) tensors
   observe(phys_state)     -> flat obs dict of (E, ...) tensors
   reward(phys_state, ctrl)-> (E,) tensor
+A domain may replace the control step (`step_fn`), as point_mass-hard
+mixes its action through per-episode gains.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from sgqn_carla_tpu_torch.physics import engine
+from sgqn_carla_tpu_torch.physics.math3d import quat_to_euler_xyz
 from sgqn_carla_tpu_torch.physics.model import HINGE, Model
 
 
@@ -51,6 +54,9 @@ class Task:
     # and finger-turn's targets, which the reference moves in
     # model.geom_pos / site_pos): (model, PhysState) -> {geom: (E, 3)}
     render_overrides_fn: Optional[Callable] = None
+    # control-step override: (model, n_sub_steps, PhysState, ctrl) ->
+    # PhysState (point_mass-hard's per-episode actuation mixing)
+    step_fn: Optional[Callable] = None
 
     @property
     def action_size(self) -> int:
@@ -66,10 +72,9 @@ class Task:
         return self.init_fn(self.model, gen, num_envs, device)
 
     def step(self, state: PhysState, ctrl) -> PhysState:
-        out = engine.n_steps(self.model, state.qpos, state.qvel, ctrl,
-                             self.n_sub_steps)
-        return state.replace(qpos=out.qpos, qvel=out.qvel,
-                             contact_force=out.contact_force)
+        if self.step_fn is not None:
+            return self.step_fn(self.model, self.n_sub_steps, state, ctrl)
+        return physics_step(self.model, self.n_sub_steps, state, ctrl)
 
     def observe(self, state: PhysState) -> Dict[str, torch.Tensor]:
         return self.observe_fn(self.model, state)
@@ -89,23 +94,41 @@ class Task:
         return pg
 
 
+def physics_step(model: Model, n_sub_steps: int, state: PhysState,
+                 ctrl) -> PhysState:
+    """`n_sub_steps` engine substeps under `ctrl` (the default control
+    step; a `step_fn` builds on it)."""
+    out = engine.n_steps(model, state.qpos, state.qvel, ctrl, n_sub_steps)
+    return state.replace(qpos=out.qpos, qvel=out.qvel,
+                         contact_force=out.contact_force)
+
+
 def randomize_limited_and_rotational_joints(model: Model, gen, num_envs: int,
                                             device) -> torch.Tensor:
     """The dm_control suite initial-state randomizer: limited joints →
     uniform in range; unlimited hinges → uniform angle in (-π, π];
-    unlimited slides → untouched. Returns qpos (E, nv)."""
-    if model.free_roots:
-        raise NotImplementedError(
-            "free-root orientation sampling: ROADMAP Queue 1, "
-            "'Remaining physics'")
+    unlimited slides → untouched; a slide×3 + hinge×3 free root → its
+    position untouched and its orientation uniform on SO(3): a normal
+    4-draw, normalised, in the Euler chart of `quat_to_euler_xyz`.
+    Returns qpos (E, nv)."""
+    free = {}
+    for start in model.free_roots:
+        q = torch.randn(num_envs, 4, generator=gen, device=device)
+        q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        free[start] = quat_to_euler_xyz(q).unbind(-1)
     cols = []
+    zero = torch.zeros(num_envs, device=device)
     for i in range(model.nv):
+        root = next((s for s in free if s <= i < s + 6), None)
+        if root is not None:
+            cols.append(zero if i < root + 3 else free[root][i - root - 3])
+            continue
         limited = bool(model.jnt_limited[i])
         lo, hi = float(model.jnt_range[i, 0]), float(model.jnt_range[i, 1])
         if not limited and int(model.jnt_type[i]) == HINGE:
             lo, hi = -float(np.pi), float(np.pi)
         elif not limited:
-            cols.append(torch.zeros(num_envs, device=device))
+            cols.append(zero)
             continue
         u = torch.rand(num_envs, generator=gen, device=device)
         cols.append(lo + (hi - lo) * u)

@@ -64,7 +64,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FLOPS_RAY = 33
 FLOPS_CULL = 6
 FLOPS_GEOM = {PLANE: 40, SPHERE: 16, CAPSULE: 69, CYLINDER: 69, BOX: 64,
-              ELLIPSOID: 46}
+              ELLIPSOID: 56}
 FLOPS_SHADE = 47
 # absolute slack of a bounding radius (m); csrc/raycast.cu adds a relative
 # one, 1e-5 of |centre - origin|², for the float error of the squared

@@ -73,11 +73,15 @@ def test_culling_changes_no_output_bit(E, size, inside):
 @pytest.mark.cuda
 @pytest.mark.parametrize("domain,task,gtype", [
     ("cartpole", "swingup", "box"), ("finger", "turn_easy", "cylinder"),
-    ("ball_in_cup", "catch", "sphere"), ("reacher", "easy", "sphere")])
+    ("ball_in_cup", "catch", "sphere"), ("reacher", "easy", "sphere"),
+    ("fish", "swim", "ellipsoid"), ("swimmer", "swimmer6", "ellipsoid"),
+    ("humanoid", "walk", "capsule")])
 def test_kernel_matches_plain_version_on_domain_geoms(domain, task, gtype):
-    """The box, cylinder and sphere branches on the DMCGB domains' posed
-    scenes (fixed cameras): culled and unculled bit-identical, both within
-    the plain version's bounds, and the geom type drawn."""
+    """The box, cylinder, sphere, ellipsoid and capsule branches on the
+    domains' posed scenes (fixed and trackcom cameras; the fish's and the
+    swimmer's ellipsoids, humanoid's 16 capsules and 3 spheres): culled
+    and unculled bit-identical, both within the plain version's bounds,
+    and the geom type drawn."""
     from sgqn_carla_tpu_torch.physics import model as pm
 
     dev = _cuda()
@@ -577,3 +581,57 @@ def test_video_hard_composite_matches_plain_version(size):
              if gm.material == "grid"]
     assert (k[1] < 0).any() and bool(torch.isin(
         k[1], torch.tensor(floor, device=dev)).any())
+
+
+@pytest.mark.cuda
+def test_dense_fish_step_ignores_global_tf32():
+    """One control step of fish (10 dense substeps) on the card with TF32
+    matmuls allowed globally equals the step with them off bit for bit:
+    the physics pins its matmuls to f32 (`engine.f32_matmuls`). Both stay
+    within 1e-4 of the CPU's qpos (fish's ill-conditioned fins: f32
+    rounding only)."""
+    from sgqn_carla_tpu_torch.physics import domains, engine
+
+    dev = _cuda()
+    task = domains.load("fish", "swim")
+    m = task.model
+    # episode starts (fins and tail within ±0.2) after 5 random steps
+    g = torch.Generator().manual_seed(0)
+    st = task.init(g, 16, "cpu")
+    for _ in range(5):
+        st = task.step(st, torch.rand(16, m.nu, generator=g) * 2 - 1)
+    q, qd = st.qpos, st.qvel
+    a = torch.rand(16, m.nu, generator=g) * 2 - 1
+    n = task.n_sub_steps
+    outs = []
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            o = engine.n_steps(m, q.to(dev), qd.to(dev), a.to(dev), n)
+            outs.append((o.qpos.cpu(), o.qvel.cpu()))
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    cpu = engine.n_steps(m, q, qd, a, n)
+    assert torch.isfinite(outs[0][0]).all()
+    np.testing.assert_allclose(outs[0][0].numpy(), cpu.qpos.numpy(),
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2, 3])
+def test_kernel_thin_ellipsoids_hold_their_float64_evaluation(seed):
+    """Fish-swim scenes whose 1-mm fins graze the rays: the kernel's
+    ellipsoid test (the discriminant from the line's closest point to the
+    centre, as the plain version's) stays within the kernel bounds and 2
+    levels of the plain version's float64 evaluation."""
+    dev = _cuda()
+    m, (Rg, pg, app, cpos, cR, fovy) = kc.task_scenes("fish", "swim", 16,
+                                                      seed, dev)
+    params = raycast._pack_params(Rg, pg, app, cpos, cR)
+    k = raycast._launch(m, params, fovy, 84, 84, True)
+    x = raycast._render_packed_ref(m, params.double(), fovy, 84, 84)
+    ok, worst = kc.compare_frames(k, x)
+    assert ok and worst["max_level_diff"] <= 2, worst

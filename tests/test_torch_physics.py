@@ -5,6 +5,7 @@ Each test feeds the same numpy inputs (seeded) to the JAX engine
 on the CPU and compares the outputs within a stated tolerance.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -17,6 +18,7 @@ from sgqn_carla_tpu.physics import domains as jdomains
 from sgqn_carla_tpu.physics import engine as jengine
 from sgqn_carla_tpu_torch.physics import domains as tdomains
 from sgqn_carla_tpu_torch.physics import engine as tengine
+from sgqn_carla_tpu_torch.physics.model import BOX, ELLIPSOID
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "walker_walk.npz")
 
@@ -185,11 +187,20 @@ def test_math3d_helpers_match():
 
 
 @pytest.mark.parametrize("change", [
-    {"implicit_limits": True}, {"density": 1000.0}, {"implicit_contacts": True},
-    {"hfield_geom": 0}, {"nl": 12}])
+    {"implicit_limits": True}, {"torso_gtype": BOX},
+    {"implicit_contacts": True}, {"hfield_geom": 0},
+    {"torso_gtype": ELLIPSOID}])
 def test_unported_model_features_raise(change):
+    """Implicit contacts and limits, heightfields, and box or ellipsoid
+    contact pairs (walker's torso made a box or an ellipsoid: its pair
+    with the floor) are ROADMAP Queue 1."""
     tt = tdomains.load("walker", "walk")
-    m = tt.model.replace(**change)
+    if "torso_gtype" in change:
+        m = tt.model.replace(geoms=[
+            dataclasses.replace(g, gtype=change["torso_gtype"])
+            if g.name == "torso" else g for g in tt.model.geoms])
+    else:
+        m = tt.model.replace(**change)
     q = torch.zeros(1, tt.model.nl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.step(m, q, q, torch.zeros(1, 6))

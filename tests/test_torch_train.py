@@ -228,7 +228,7 @@ def test_attribution_images_match_jax_grids_and_names(tmp_path):
     ({"domain_name": "hopper", "task_name": "stand"}, "Remaining physics"),
     ({"replay_spill": "host"}, "Host-spill"),
     ({"mesh_data_axis": 2}, "Multi-GPU"),
-    ({"domain_name": "fish", "task_name": "upright"},
+    ({"domain_name": "quadruped", "task_name": "walk"},
      "Remaining physics"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):

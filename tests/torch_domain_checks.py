@@ -118,9 +118,10 @@ def check_substeps(jt, tt, q, qd, ctrl, n=2):
     return np.asarray(jo.contact_force)
 
 
-def check_reward_obs(jt, tt, q, qd, ctrl, aux=None, contact_force=None):
+def check_reward_obs(jt, tt, q, qd, ctrl, aux=None, contact_force=None,
+                     atol=FK_TOL):
     """Rewards and observations on the same states, task_aux and contact
-    forces injected into both sides."""
+    forces injected into both sides, within `atol` (FK_TOL by default)."""
     E = q.shape[0]
     npair = len(jt.model.contact_pairs)
     cf = (np.zeros((E, npair), np.float32) if contact_force is None
@@ -137,11 +138,11 @@ def check_reward_obs(jt, tt, q, qd, ctrl, aux=None, contact_force=None):
                   task_aux=None if aux is None
                   else {k: t(v) for k, v in aux.items()})
     rew, obs = tt.reward(s, t(ctrl)), tt.observe(s)
-    np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), atol=FK_TOL)
+    np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), atol=atol)
     assert set(obs) == set(jobs)
     for k in obs:
         np.testing.assert_allclose(obs[k].numpy(), np.asarray(jobs[k]),
-                                   atol=FK_TOL, err_msg=k)
+                                   atol=atol, err_msg=k)
     return np.asarray(jrew)
 
 
@@ -207,25 +208,17 @@ def compare_excusing(o, r, excused=(), cap=0):
     return ok, worst
 
 
-def check_pallas_scene(jt, tt, q, aux=None, excused=(), cap=0):
-    """The port's plain version of the kernel against the TPU kernel
-    (Pallas interpret mode) and against JAX's plain renderer
-    (`raster.render_scene`, a witness independent of the port) on posed
-    scenes of the domain, render overrides applied, both at
-    `compare_frames`' bounds; the plain version also within those bounds
-    of its own float64 evaluation. Both JAX renderers keep the textbook
-    capsule discriminant that the port replaced, which is not f32-exact on
-    cartpole's rails (4 m long, 0.02 m thick, at the fixed camera's
-    height): on the geoms named in `excused`, up to `cap` pixels a frame
-    may be more than 2 levels off (`compare_excusing`). Returns the set of
-    seg ids drawn, and `compare_frames`' counts of Pallas and of JAX's
-    plain renderer against the float64 evaluation."""
+def scene_frames(jt, tt, q, aux=None):
+    """One posed scene (zero speeds, render overrides applied) through the
+    interpreted Pallas kernel, JAX's plain `raster.render_scene`, and the
+    port's plain version in f32 and float64: ((pallas, jplain, plain,
+    exact), each (rgb (E, 3, 84, 84), seg (E, 84, 84)); the arguments of
+    `raycast.render_batch_ref` after the model)."""
     from jax.experimental.pallas import tpu as pltpu
 
     from sgqn_carla_tpu.render import pallas_raster as pr
     from sgqn_carla_tpu.render import raster as jraster
     from sgqn_carla_tpu.render.cameras import camera_pose as jcamera_pose
-    from sgqn_carla_tpu_torch.render import kernel_checks as kc
     from sgqn_carla_tpu_torch.render import raycast
     from sgqn_carla_tpu_torch.render.cameras import camera_pose
     from sgqn_carla_tpu_torch.render.raster import default_appearance
@@ -260,7 +253,25 @@ def check_pallas_scene(jt, tt, q, aux=None, excused=(), cap=0):
             t(np.asarray(jcam.pos)), t(np.asarray(jcam.R)), fovy, 84, 84)
     plain = raycast.render_batch_ref(tt.model, *args)
     exact = raycast.render_batch_ref(tt.model, *args, dtype=torch.float64)
-    pallas = (t(jrgb), t(jseg))
+    return ((t(jrgb), t(jseg)), jplain, plain, exact), args
+
+
+def check_pallas_scene(jt, tt, q, aux=None, excused=(), cap=0):
+    """The port's plain version of the kernel against the TPU kernel
+    (Pallas interpret mode) and against JAX's plain renderer
+    (`raster.render_scene`, a witness independent of the port) on posed
+    scenes of the domain, render overrides applied, both at
+    `compare_frames`' bounds; the plain version also within those bounds
+    of its own float64 evaluation. Both JAX renderers keep the textbook
+    capsule discriminant that the port replaced, which is not f32-exact on
+    cartpole's rails (4 m long, 0.02 m thick, at the fixed camera's
+    height): on the geoms named in `excused`, up to `cap` pixels a frame
+    may be more than 2 levels off (`compare_excusing`). Returns the set of
+    seg ids drawn, and `compare_frames`' counts of Pallas and of JAX's
+    plain renderer against the float64 evaluation."""
+    from sgqn_carla_tpu_torch.render import kernel_checks as kc
+
+    (pallas, jplain, plain, exact), _ = scene_frames(jt, tt, q, aux)
     names = {g.name: i for i, g in enumerate(tt.model.geoms)}
     ex = {names[n] for n in excused}
     for other in (pallas, jplain):
