@@ -109,7 +109,7 @@ Phases, each printing one JSON line:
               tree (the pool resize on the card)
  10. dmcgb_domains  cartpole-swingup, reacher-easy, cheetah-run,
               finger-spin and ball_in_cup-catch at 16 envs and 84 px: reset
-              and 5 random wrapper steps (finite rewards and state, one
+              and 2 random wrapper steps (finite rewards and state, one
               kernel launch per render), the env step's ms, its physics /
               rewards / render split, eager ops and device idle share;
               the kernel on each posed scene (box, cylinder and sphere
@@ -136,7 +136,7 @@ Phases, each printing one JSON line:
  11. suite_domains  pendulum-swingup, acrobot-swingup, point_mass-hard,
               lqr_6_2, swimmer6 (scalar path and fluid), swimmer15,
               fish-swim and humanoid-walk (the dense path) at 16 envs
-              and 84 px, as dmcgb_domains (reset and 5 random steps, the
+              and 84 px, as dmcgb_domains (reset and 2 random steps, the
               split, eager ops, idle share, the kernel on each posed
               scene: ellipsoids, trackcom cameras, render overrides);
               then the eight golden MuJoCo trajectories (pendulum,
@@ -148,11 +148,33 @@ Phases, each printing one JSON line:
               --algorithm sgsac at full width and 8 envs, as
               cartpole_trainer: video_hard at S2, saves, resume/S2 bit
               for bit, a resume to S3
- 12. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
+ 12. grasp_domains  hopper stand and hop, manipulator bring_ball,
+              bring_peg, insert_ball, insert_peg, stacker stack_2 and
+              stack_4 (the implicit contact solver) at 16 envs and 84 px:
+              reset and 2 random wrapper steps (finite state, carry and
+              rewards), the env step's ms and split, a substep's
+              device-busy ms and idle share, eager ops of a substep, of
+              the contact stage and of a control step (n_sub substeps
+              and n_sub − 1 maxima; counted in full on hopper, where the
+              stage's ops per row and sweep are measured too), the
+              kernel on each scene (boxes, 7 to 27 geoms) against the
+              plain version
+     grasp_goldens  the golden MuJoCo trajectories of hopper stand,
+              manipulator bring_ball and stacker stack_2 on the card
+              (TF32 allowed globally for the last two: the physics pins
+              its own matmuls), then the hold probe: the squeezed ball
+              held above 0.9 m after 30 control steps with positive
+              normal impulses in the carry
+     hopper_trainer  train --domain_name hopper --task_name stand
+              --algorithm sgsac at full width and 8 envs, as
+              cartpole_trainer (the solver's carry in the resumed env
+              states)
+ 13. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
      offline_eval, algorithms, pad_trainer, pad_offline_eval,
      external_data, dmcgb_domains, cartpole_trainer,
-     distracting_cs_dmcgb, suite_domains, humanoid_trainer; the kernel's
-     times on each domain's scene), then
+     distracting_cs_dmcgb, suite_domains, humanoid_trainer,
+     grasp_domains, hopper_trainer; the kernel's times on each domain's
+     scene), then
      the card's nvidia-smi line, then {"ok": true, "device": {...}} as
      the last line. The work dir build/chip_smoke_logs/ is emptied first.
 
@@ -1212,7 +1234,7 @@ def _timed_ms(fn, n=1):
     return statistics.median(out)
 
 
-def domain_row(domain, task, raycast, kc, E=16, steps=5):
+def domain_row(domain, task, raycast, kc, E=16, steps=2):
     """One domain at E envs and 84 px: reset and `steps` random wrapper
     steps (finite rewards and state), the env step's time and its split,
     eager ops and device idle share, then the kernel on the posed scene
@@ -1354,6 +1376,211 @@ def suite_domains_phase(smi, raycast, kc):
           "phase_s": time.time() - start, "domains": rows,
           "golden_trajectories": goldens})
     return ok, rows, launches
+
+
+# ---- the grasp domains: the implicit contact solver
+GRASP = (("hopper", "stand"), ("hopper", "hop"),
+         ("manipulator", "bring_ball"), ("manipulator", "bring_peg"),
+         ("manipulator", "insert_ball"), ("manipulator", "insert_peg"),
+         ("stacker", "stack_2"), ("stacker", "stack_4"))
+GRASP_GOLDENS = (("hopper", "stand"), ("manipulator", "bring_ball"),
+                 ("stacker", "stack_2"))
+HOLD_STEPS = 30  # control steps of the grasp hold probe
+
+
+def stage_launches(model, phys, per_row=False):
+    """Eager ops of one implicit contact stage on `phys`; with `per_row`,
+    also those of one more velocity sweep and of one more positional
+    sweep per contact row (the stage counted again with GS_SWEEPS, then
+    POS_SWEEPS, one higher)."""
+    from sgqn_carla_tpu_torch.physics import dense
+
+    run = lambda: dense.implicit_contact_stage(
+        model, phys.qpos, phys.qvel, model.timestep, phys.solver_warm)
+    base = _count_ops(run)
+    rows = dense.warm_size(model)
+    out = {"stage_ops": base, "rows": rows}
+    for name, key in (("GS_SWEEPS", "per_row_per_velocity_sweep"),
+                      ("POS_SWEEPS", "per_row_per_positional_sweep")):
+        if not per_row:
+            break
+        old = getattr(dense, name)
+        setattr(dense, name, old + 1)
+        try:
+            out[key] = (_count_ops(run) - base) / rows
+        finally:
+            setattr(dense, name, old)
+    return out
+
+
+def grasp_row(domain, task, raycast, kc, E=16, steps=2, full_count=False):
+    """One grasp task at E envs and 84 px: reset and `steps` random
+    wrapper steps (finite state, carry and rewards; one kernel launch per
+    render); the env step's ms; its split (physics: action_repeat × one
+    control step's ms; rewards; render); one substep's wall and
+    device-busy ms and idle share (a whole env step of 40 substeps is
+    too long a trace); eager ops of a substep and of the contact stage,
+    and of a control step: n_sub substeps and n_sub − 1 per-pair maxima
+    (with `full_count` the control step is counted too, and must agree,
+    and the stage's ops per row and sweep are measured); the kernel on
+    the posed scene against the plain version. Returns (ok, row,
+    launches of the reset and steps)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.envs import make_env
+    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+    from sgqn_carla_tpu_torch.physics import engine
+
+    env = make_env(domain, task, image_size=84, episode_length=1000,
+                   device=DEV)
+    venv = VectorEnv(env, E)
+    m = env.task.model
+    g = torch.Generator(DEV).manual_seed(11)
+    raycast.launches = 0
+    t0 = time.time()
+    states, obs = venv.reset(g)
+    torch.cuda.synchronize()
+    reset_s = time.time() - t0
+    step_ms, rewards = [], []
+    for _ in range(steps):
+        a = torch.rand((E, env.action_size), generator=g, device=DEV) * 2 - 1
+        torch.cuda.synchronize()
+        t0 = time.time()
+        states, res = venv.step(states, a)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        rewards.append(res.reward)
+    launches = raycast.launches
+    phys = states.phys
+    rew = torch.stack(rewards)
+    finite = bool(torch.isfinite(rew).all()
+                  and torch.isfinite(phys.qpos).all()
+                  and torch.isfinite(phys.qvel).all()
+                  and torch.isfinite(phys.solver_warm).all())
+    control = lambda: env.task.step(phys, a)
+    substep = lambda: engine.step_warm(m, phys.qpos, phys.qvel, a, None,
+                                       phys.solver_warm)
+    control_ms = _timed_ms(control)
+    parts = {"physics": env.action_repeat * control_ms,
+             "rewards": _timed_ms(lambda: [env.task.reward(phys, a)
+                                           for _ in range(env.action_repeat)]),
+             "render": _timed_ms(lambda: env._render_frame(states))}
+    sub_ms = _timed_ms(substep, 3)
+    _, busy, top = kc.profiled(substep, 1)
+    n_sub = env.task.n_sub_steps
+    ops = {"substep": _count_ops(substep),
+           **stage_launches(m, phys, per_row=full_count)}
+    ops["control_step"] = n_sub * ops["substep"] + n_sub - 1
+    counted = True
+    if full_count:
+        ops["control_step_counted"] = _count_ops(control)
+        counted = ops["control_step_counted"] == ops["control_step"]
+    scene = env.scene(states)
+    params = raycast._pack_params(scene["Rg"], scene["pg"], scene["app"],
+                                  scene["cam_pos"], scene["cam_R"])
+    krow = kernel_row(raycast, kc, m, params, scene["fovy"], 84)
+    ms = statistics.median(step_ms)
+    ok = (finite and tuple(obs.shape) == (E, 9, 84, 84) and counted
+          and launches == 1 + steps and krow["ok"])
+    return ok, {
+        "ok": ok, "finite": finite, "num_envs": E, "reset_s": reset_s,
+        "substeps_per_env_step": n_sub * env.action_repeat,
+        "contact_rows": ops["rows"], "ms_per_env_step": ms,
+        "env_step_ms_runs": step_ms, "control_step_ms": control_ms,
+        "breakdown_ms": parts, "substep_ms": sub_ms,
+        "substep_device_busy_ms": busy,
+        "device_idle_share": _idle(busy, sub_ms), "top_kernels_ms": top,
+        "eager_ops": ops, "kernel_launches": launches,
+        "carry_rows_pressed": int((phys.solver_warm[..., 0] > 0).sum()),
+        "reward_mean": float(rew.mean()), "kernel": krow}, launches
+
+
+def grasp_domains_phase(smi, raycast, kc):
+    """Every grasp task (grasp_row each at 16 envs). Returns (ok, rows,
+    kernel launches)."""
+    start = time.time()
+    ok, rows, launches = True, {}, 0
+    for domain, task in GRASP:
+        t0 = time.time()
+        good, row, n = grasp_row(domain, task, raycast, kc,
+                                 full_count=domain == "hopper")
+        row["phase_s"] = time.time() - t0
+        ok &= good
+        launches += n
+        rows[f"{domain}_{task}"] = row
+    emit({"phase": "grasp_domains", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "domains": rows})
+    return ok, rows, launches
+
+
+def grasp_goldens_phase(smi):
+    """The golden MuJoCo trajectories of hopper stand, manipulator
+    bring_ball and stacker stack_2 on the card at tests/test_parity.py's
+    bounds; then tests/test_grasp.py's hold probe: the ball between the
+    open tips of the straight arm, the grasp motor closed for HOLD_STEPS
+    control steps: finite, the ball above 0.9 m at the end, positive
+    normal impulses in the carry."""
+    import torch
+
+    from sgqn_carla_tpu_torch.physics import domains, engine, golden_replay
+    from sgqn_carla_tpu_torch.physics.task import PhysState, with_cold_solver
+
+    start = time.time()
+    ok, goldens = True, {}
+    try:
+        for domain, task in GRASP_GOLDENS:
+            # dense-path domains with TF32 allowed: the pin must hold
+            torch.backends.cuda.matmul.allow_tf32 = domain != "hopper"
+            t0 = time.time()
+            res = golden_replay.replay(domain, task, os.path.join(
+                REPO, "tests", "golden", f"{domain}_{task}.npz"), device=DEV)
+            res["seconds"] = time.time() - t0
+            res["tf32_allowed"] = domain != "hopper"
+            ok &= res["ok"]
+            goldens[f"{domain}_{task}"] = res
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t = domains.load("manipulator", "bring_ball")
+    m = t.model
+    jn = list(m.joint_names)
+    q = torch.zeros(1, m.nv, device=DEV)
+    kin = engine.forward_kinematics(m, q, q)
+    tip = lambda n: kin.p[0, m.body_last_link[m.body_names.index(n)]]
+    mid = (tip("thumbtip") + tip("fingertip")) / 2
+    q[0, jn.index("object_x")] = mid[0]
+    q[0, jn.index("object_z")] = mid[2]
+    st = with_cold_solver(m, PhysState(q, torch.zeros_like(q), torch.zeros(
+        1, len(m.contact_pairs), device=DEV)))
+    ctrl = torch.zeros(1, m.nu, device=DEV)
+    ctrl[0, 4] = 1.0
+    t0 = time.time()
+    z = []
+    for _ in range(HOLD_STEPS):
+        st = t.step(st, ctrl)
+        z.append(st.qpos[0, jn.index("object_z")])
+    z = torch.stack(z).cpu().numpy().tolist()
+    hold_s = time.time() - t0
+    pressed = int((st.solver_warm[0, :, 0] > 0).sum())
+    finite = bool(torch.isfinite(st.qpos).all()
+                  and torch.isfinite(st.solver_warm).all())
+    hold_ok = finite and z[-1] > 0.9 and pressed > 0
+    ok &= hold_ok
+    emit({"phase": "grasp_goldens", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "golden_trajectories": goldens,
+          "hold": {"ok": hold_ok, "control_steps": HOLD_STEPS,
+                   "ball_z": z, "carry_rows_pressed": pressed,
+                   "finite": finite, "seconds": hold_s}})
+    return ok
+
+
+def hopper_trainer_phase(cfg, smi, raycast):
+    """`train --domain_name hopper --task_name stand --algorithm sgsac` at
+    full width, 8 envs, as cartpole_trainer: the implicit contact stage
+    on the scalar path under SGQN, video_hard at S2 with the 448-px
+    recording, resume/S2 (the solver's carry in the env states) bit for
+    bit, a resume to S3."""
+    return domain_trainer_phase(cfg, smi, raycast, "hopper_trainer",
+                                "hopper", "stand")
 
 
 def trainer_argv(cfg, log_dir, **kw):
@@ -1804,7 +2031,19 @@ def main():
     if not ok_hu:
         return 1
 
-    # ---- 12. kernels line, card line, result
+    # ---- 12. the grasp domains (the implicit contact solver): env,
+    # launches and kernel on each, the goldens and the hold probe, SGQN
+    # on hopper stand
+    ok_gr, gr_rows, gr_launches = grasp_domains_phase(smi, raycast, kc)
+    if not ok_gr:
+        return 1
+    if not grasp_goldens_phase(smi):
+        return 1
+    ok_ho, ho_launches = hopper_trainer_phase(cfg, smi, raycast)
+    if not ok_ho:
+        return 1
+
+    # ---- 13. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -1824,10 +2063,12 @@ def main():
                              "cartpole_trainer": cp_launches,
                              "distracting_cs_dmcgb": dd_launches,
                              "suite_domains": su_launches,
-                             "humanoid_trainer": hu_launches},
+                             "humanoid_trainer": hu_launches,
+                             "grasp_domains": gr_launches,
+                             "hopper_trainer": ho_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [
             d["kernel"] for d in list(dm_rows.values())
-            + list(su_rows.values())]),
+            + list(su_rows.values()) + list(gr_rows.values())]),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
         "device_ms_unculled": main_row["kernel_device_ms_unculled"],
@@ -1848,7 +2089,7 @@ def main():
                 "kernel_device_ms_unculled",
                 "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                 "identical", "seg_mismatch_max")}
-            for name, d in {**dm_rows, **su_rows}.items()},
+            for name, d in {**dm_rows, **su_rows, **gr_rows}.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,7 +41,7 @@ from sgqn_carla_tpu_torch.data.videos import get_videos
 from sgqn_carla_tpu_torch.envs import distracting as dcs
 from sgqn_carla_tpu_torch.physics import engine
 from sgqn_carla_tpu_torch.physics.domains import load as load_task
-from sgqn_carla_tpu_torch.physics.task import PhysState
+from sgqn_carla_tpu_torch.physics.task import PhysState, with_cold_solver
 from sgqn_carla_tpu_torch.render.cameras import _root_link, camera_pose
 from sgqn_carla_tpu_torch.render.raster import Appearance, default_appearance
 from sgqn_carla_tpu_torch.render.raycast import render_frames
@@ -196,6 +196,8 @@ class DMCPixelEnv:
         dev, model = self.device, self.task.model
         if phys is None:
             phys = self.task.init(gen, num_envs, dev)
+        elif phys.solver_warm is None:
+            phys = with_cold_solver(model, phys)  # an episode starts cold
         E = phys.qpos.shape[0]
         if self.color_table is not None:
             if color_idx is None:

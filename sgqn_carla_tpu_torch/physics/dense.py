@@ -22,11 +22,20 @@ batch of envs:
     and `cholesky_solve`, with the JAX path's 1e-10 shift.
 
 The narrow phase carries the point–plane (spheres, capsule and cylinder
-ends) and segment–segment categories of the JAX `CollisionProgram`;
-box and ellipsoid pairs, the implicit contact solver and heightfields
-raise `NotImplementedError` naming ROADMAP Queue 1. No host sync and no
-branch on tensor values: the path can be captured in a CUDA graph. Its
-matmuls run in true f32 (`engine.f32_matmuls` at every entry point).
+ends, box corners), point–box (sample points of spheres, capsules,
+cylinders and boxes against a box) and segment–segment categories of the
+JAX `CollisionProgram`, in its row order; ellipsoid pairs and
+heightfields raise `NotImplementedError` naming ROADMAP Queue 1.
+
+`implicit_contact_stage` is the grasp domains' velocity-level contact
+solve (hopper, manipulator, stacker; any nl): projected Gauss-Seidel
+impulses on the exact Delassus operator, one batched Cholesky per
+substep, the rows visited in order as in JAX's `lax.scan`, each row a
+fixed handful of launches on (E, ·) tensors.
+
+No host sync and no branch on tensor values: the path can be captured in
+a CUDA graph. Its matmuls run in true f32 (`engine.f32_matmuls` at every
+entry point).
 """
 
 from __future__ import annotations
@@ -42,6 +51,12 @@ from sgqn_carla_tpu_torch.physics.model import (
 )
 
 DENSE_NL = eng._DENSE_NL  # 12: engine.step sends nl ≥ DENSE_NL here
+# Gauss-Seidel sweeps of the implicit contact solve: velocity-impulse
+# sweeps, positional pseudo-impulse sweeps, the positional error-reduction
+# factor (the JAX engine's constants)
+GS_SWEEPS = 3
+POS_SWEEPS = 2
+GS_BETA = 0.2
 
 _f = torch.float32
 
@@ -104,7 +119,7 @@ def _consts(model: Model, device) -> Dict[str, torch.Tensor]:
         "anc_f": eng._ancestors(model).astype(np.float64),
         "mass": model.link_mass, "I_loc": model.link_inertia,
         "armature": np.diag(np.asarray(model.jnt_armature, np.float64)),
-        "levi": _LEVI, "shift": shift,
+        "levi": _LEVI, "shift": shift, "iota3": np.arange(3),
         "a_base": np.concatenate([np.zeros(3), -np.asarray(model.gravity)]),
         "g_rot": np.stack([_quat_mat_np(g.quat) for g in model.geoms]),
         "g_pos": np.stack([np.asarray(g.pos, np.float64)
@@ -166,6 +181,29 @@ def forward_kinematics_scan(model: Model, qpos, qvel) -> eng.Kin:
     v = torch.einsum("ij,ejk->eik", c["anc_f"], S * qd[..., None])
     com = p + _mv(R, c["com_l"])
     return eng.Kin(like=theta[:, 0], R=R, p=p, S=S, v=v, com=com)
+
+
+def link_quat(model: Model, qpos, link: int) -> torch.Tensor:
+    """(E, 4) world quaternion (w, x, y, z) of `link`, composed down its
+    chain as the JAX scan FK composes it: the dense Kin keeps rotation
+    matrices only, and a quaternion's sign follows the chain's summed
+    half-angles, which a matrix does not record."""
+    from sgqn_carla_tpu_torch.ops import v3
+
+    chain = []
+    i = link
+    while i >= 0:
+        chain.append(i)
+        i = int(model.link_parent[i])
+    theta = qpos.float() - _consts(model, qpos.device)["jnt_ref"]
+    q = (1.0, 0.0, 0.0, 0.0)
+    for i in reversed(chain):
+        q = v3.qmul(q, tuple(float(c) for c in model.link_quat[i]))
+        if int(model.jnt_type[i]) == HINGE:
+            n = v3.qrot(q, tuple(float(c) for c in model.jnt_axis[i]))
+            half = 0.5 * theta[:, i]
+            q = v3.qmul((torch.cos(half), *v3.scale(n, torch.sin(half))), q)
+    return v3.stack(q, theta[:, 0])
 
 
 def geom_world(model: Model, kin: eng.Kin):
@@ -281,18 +319,22 @@ _ROUND = (SPHERE, CAPSULE, CYLINDER)
 
 class CollisionProgram(NamedTuple):
     """The batched narrow phase compiled from the model's pair list, on
-    one device. Point–plane rows (npp: spheres, capsule and cylinder
-    ends, each a point with a radius) come first, then segment–segment
-    rows (nss: spheres as zero-length segments); per row its geoms,
-    offsets, radii, friction and gains, and the one-hot matrices that
-    send its wrench to its links (+a, −b) and its normal force to its
-    pair."""
+    one device. Rows in the JAX program's order: point–plane (npp:
+    spheres, capsule and cylinder ends, each a point with a radius, and
+    box corners of radius 0), point–box (npb: a sphere's centre, five
+    points along a capsule or cylinder axis, a box's eight corners,
+    against a box; box–box pairs both ways), segment–segment (nss:
+    spheres as zero-length segments). Per row its geoms, offsets, radii,
+    friction and gains, and the one-hot matrices that send its wrench to
+    its links (+a, −b) and its normal force to its pair."""
 
     npp: int
+    npb: int
     nss: int
     pp: Dict[str, torch.Tensor]
+    pb: Dict[str, torch.Tensor]
     ss: Dict[str, torch.Tensor]
-    mu: torch.Tensor           # (P,) friction of every row, pp then ss
+    mu: torch.Tensor           # (P,) friction of every row
     kp: torch.Tensor           # (P,) inertia-scaled stiffness
     kd: torch.Tensor           # (P,) damping
     ka: torch.Tensor           # (P,) gravity feed-forward (one side static)
@@ -300,25 +342,59 @@ class CollisionProgram(NamedTuple):
     lb: torch.Tensor
     to_links: torch.Tensor     # (P, nl + 1) one-hot(la) − one-hot(lb)
     to_pairs: torch.Tensor     # (P, npair) one-hot(pair)
+    mu_host: tuple             # the rows' friction as Python floats
+
+
+def _pt_samples(g):
+    """Local sample points and their radius of a geom against a box."""
+    if g.gtype == SPHERE:
+        return [(0.0, 0.0, 0.0)], float(g.size[0])
+    if g.gtype in (CAPSULE, CYLINDER):
+        hl = float(g.size[1])
+        return [(0.0, 0.0, hl * t) for t in (-1.0, -0.5, 0.0, 0.5, 1.0)], \
+            float(g.size[0])
+    if g.gtype == BOX:
+        return _corners(g), 0.0
+    raise NotImplementedError(
+        f"point–box sampling of geom type {g.gtype}: " + eng._ROADMAP_PHYSICS)
+
+
+def _corners(g):
+    sx, sy, sz = (float(x) for x in g.size)
+    return [(x * sx, y * sy, z * sz) for x in (-1, 1) for y in (-1, 1)
+            for z in (-1, 1)]
 
 
 def _build_program(model: Model, device) -> CollisionProgram:
     nl = model.nl
     pp = {k: [] for k in ("geom", "off", "r", "plane")}
+    pb = {k: [] for k in ("geom_pt", "off", "r", "geom_box", "size")}
     ss = {k: [] for k in ("geom_a", "geom_b", "hl_a", "hl_b", "r_a", "r_b")}
-    rows = {"pp": [], "ss": []}  # (link_a, link_b, pair, mu) per row
+    rows = {"pp": [], "pb": [], "ss": []}  # (link_a, link_b, pair, mu)
     for pi, (gi, gj) in enumerate(np.asarray(model.contact_pairs)):
         a, b = model.geoms[int(gi)], model.geoms[int(gj)]
         ga, gb = int(gi), int(gj)
         if a.gtype == PLANE:
             a, b, ga, gb = b, a, gb, ga
         mu = max(a.friction, b.friction)
-        if b.gtype == PLANE and a.gtype in _ROUND:
-            r = float(a.size[0])
-            pts = ([(0.0, 0.0, 0.0)] if a.gtype == SPHERE else
-                   [(0.0, 0.0, -float(a.size[1])),
-                    (0.0, 0.0, float(a.size[1]))])
-            for off in pts:
+        if ELLIPSOID in (a.gtype, b.gtype):
+            kind = ("ellipsoid–plane" if b.gtype == PLANE
+                    else "point–ellipsoid")
+            raise NotImplementedError(
+                f"{kind} contact category (geom types {a.gtype} vs "
+                f"{b.gtype}): " + eng._ROADMAP_PHYSICS)
+        if b.gtype == PLANE:
+            if a.gtype == BOX:
+                pts = [(off, 0.0) for off in _corners(a)]
+            elif a.gtype in _ROUND:
+                r = float(a.size[0])
+                pts = ([((0.0, 0.0, 0.0), r)] if a.gtype == SPHERE else
+                       [((0.0, 0.0, -float(a.size[1])), r),
+                        ((0.0, 0.0, float(a.size[1])), r)])
+            else:
+                raise NotImplementedError(
+                    f"plane vs geom type {a.gtype}: " + eng._ROADMAP_PHYSICS)
+            for off, r in pts:
                 pp["geom"].append(ga)
                 pp["off"].append(off)
                 pp["r"].append(r)
@@ -332,15 +408,26 @@ def _build_program(model: Model, device) -> CollisionProgram:
             ss["r_a"].append(float(a.size[0]))
             ss["r_b"].append(float(b.size[0]))
             rows["ss"].append((a.link, b.link, pi, mu))
+        elif BOX in (a.gtype, b.gtype):
+            # the point geom's samples against the box (both ways for two
+            # boxes), normals from the box toward the point geom
+            ways = ([(a, ga, b, gb), (b, gb, a, ga)]
+                    if a.gtype == BOX and b.gtype == BOX else
+                    [(b, gb, a, ga)] if a.gtype == BOX else [(a, ga, b, gb)])
+            for pt_g, pt_id, box_g, box_id in ways:
+                offs, r = _pt_samples(pt_g)
+                for off in offs:
+                    pb["geom_pt"].append(pt_id)
+                    pb["off"].append(off)
+                    pb["r"].append(r)
+                    pb["geom_box"].append(box_id)
+                    pb["size"].append([float(x) for x in box_g.size])
+                    rows["pb"].append((pt_g.link, box_g.link, pi, mu))
         else:
-            kind = ("ellipsoid–plane" if ELLIPSOID in (a.gtype, b.gtype)
-                    and PLANE in (a.gtype, b.gtype) else
-                    "point–box" if BOX in (a.gtype, b.gtype) else
-                    "point–ellipsoid")
             raise NotImplementedError(
-                f"{kind} contact category (geom types {a.gtype} vs "
-                f"{b.gtype}): " + eng._ROADMAP_PHYSICS)
-    allrows = rows["pp"] + rows["ss"]
+                f"contact pair {a.gtype} vs {b.gtype}: "
+                + eng._ROADMAP_PHYSICS)
+    allrows = rows["pp"] + rows["pb"] + rows["ss"]
     npair = len(model.contact_pairs)
     m_eff, _ = eng.constraint_scales(model)
     k0, b0, imp = eng._soft_gains(model)
@@ -359,17 +446,21 @@ def _build_program(model: Model, device) -> CollisionProgram:
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     idx = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
     gains = lambda g: f32(g[pair] if P else np.zeros(0))
+    mu = [float(np.float32(r[3])) for r in allrows]
     return CollisionProgram(
-        npp=len(rows["pp"]), nss=len(rows["ss"]),
+        npp=len(rows["pp"]), npb=len(rows["pb"]), nss=len(rows["ss"]),
         pp={"geom": idx(pp["geom"]), "plane": idx(pp["plane"]),
             "off": f32(np.reshape(pp["off"], (-1, 3))), "r": f32(pp["r"])},
+        pb={"geom_pt": idx(pb["geom_pt"]), "geom_box": idx(pb["geom_box"]),
+            "off": f32(np.reshape(pb["off"], (-1, 3))), "r": f32(pb["r"]),
+            "size": f32(np.reshape(pb["size"], (-1, 3)))},
         ss={"geom_a": idx(ss["geom_a"]), "geom_b": idx(ss["geom_b"]),
             **{k: f32(ss[k]) for k in ("hl_a", "hl_b", "r_a", "r_b")}},
-        mu=f32([r[3] for r in allrows]),
+        mu=f32(mu),
         kp=gains(imp * m_eff * k0), kd=gains(imp * m_eff * b0),
         ka=gains(imp * m_eff * one_static),
         la=idx(la), lb=idx(lb), to_links=f32(to_links),
-        to_pairs=f32(to_pairs))
+        to_pairs=f32(to_pairs), mu_host=tuple(mu))
 
 
 _PROGRAMS: dict = {}
@@ -388,7 +479,7 @@ def collision_program(model: Model, device) -> CollisionProgram:
 
 def _contact_depths_points(model: Model, kin: eng.Kin, prog):
     """The batched narrow phase: depth (E, P), point (E, P, 3) and normal
-    (E, P, 3) of every row, pp rows then ss rows; normals point from
+    (E, P, 3) of every row, pp rows, then pb, then ss; normals point from
     geom b toward geom a."""
     Rg, pg = geom_world(model, kin)
     depth, point, normal = [], [], []
@@ -397,6 +488,29 @@ def _contact_depths_points(model: Model, kin: eng.Kin, prog):
         x = pg[:, d["geom"]] + _mv(Rg[:, d["geom"]], d["off"])
         n = Rg[:, d["plane"], :, 2]
         dist = (n * x).sum(-1) - (n * pg[:, d["plane"]]).sum(-1)
+        depth.append(d["r"] - dist)
+        point.append(x - n * dist[..., None])
+        normal.append(n)
+    if prog.npb:
+        # a sample point in the box frame: outside, the normal runs from
+        # its clamped image to it; inside, through the nearest face
+        d = prog.pb
+        x = pg[:, d["geom_pt"]] + _mv(Rg[:, d["geom_pt"]], d["off"])
+        Rb = Rg[:, d["geom_box"]]
+        q = _mv(Rb.transpose(-1, -2), x - pg[:, d["geom_box"]])
+        s = d["size"]
+        delta = q - torch.clamp(q, -s, s)
+        d2 = (delta * delta).sum(-1)
+        outside = d2 > 1e-12
+        dist_out = torch.sqrt(torch.clamp(d2, min=1e-12))
+        fd_min, k_best = torch.min(s - q.abs(), -1)
+        sgn = torch.where(q.abs() < 1e-9, torch.ones_like(q), q).sign()
+        # the face's axis as a 0/1 row (one_hot would check its indices
+        # on the host)
+        n_in = sgn * (k_best[..., None] == _consts(model, q.device)["iota3"])
+        dist = torch.where(outside, dist_out, -fd_min)
+        n = _mv(Rb, torch.where(outside[..., None],
+                                delta / dist_out[..., None], n_in))
         depth.append(d["r"] - dist)
         point.append(x - n * dist[..., None])
         normal.append(n)
@@ -464,7 +578,7 @@ def penetration_depths_batched(model: Model, qpos) -> torch.Tensor:
     kin = eng.forward_kinematics(model, q, torch.zeros_like(q))
     prog = collision_program(model, q.device)
     lead = torch.full_like(q[:, :1], -1.0)
-    if not prog.npp + prog.nss:
+    if not prog.npp + prog.npb + prog.nss:
         return lead
     return torch.cat([lead, _contact_depths_points(model, kin, prog)[0]], 1)
 
@@ -526,11 +640,13 @@ def forward_dynamics(model: Model, qpos, qvel, ctrl, anc=None):
     if model.density > 0 or model.viscosity > 0:
         Ff = fluid_wrenches(model, kin)
         F = Ff if F is None else F + Ff
-    if len(model.contact_pairs):
+    if len(model.contact_pairs) and not model.implicit_contacts:
         Fc, pair_f = contact_wrenches_batched(model, kin)
         F = Fc if F is None else F + Fc
     else:
-        pair_f = qpos.new_zeros(qpos.shape[:-1] + (0,))
+        # implicit contacts act after the velocity update (step_warm)
+        pair_f = qpos.new_zeros(qpos.shape[:-1] + (
+            len(model.contact_pairs) if model.implicit_contacts else 0,))
     if F is not None:
         tau = tau + project_wrenches(kin, anc_f, F)
     L, _ = torch.linalg.cholesky_ex(M + c["shift"])
@@ -538,11 +654,132 @@ def forward_dynamics(model: Model, qpos, qvel, ctrl, anc=None):
     return qacc, pair_f
 
 
-def implicit_contact_stage(*args, **kwargs):
-    """The JAX path's velocity-level implicit contact solve (hopper,
-    manipulator, stacker): not ported."""
-    raise NotImplementedError("implicit contact solver: "
-                              + eng._ROADMAP_PHYSICS)
+def warm_size(model: Model) -> int:
+    """Rows of the implicit solver's warm-start carry: every contact row
+    of the narrow phase (the static shape of `PhysState.solver_warm`)."""
+    prog = collision_program(model, "cpu")
+    return prog.npp + prog.npb + prog.nss
+
+
+_STAGE: dict = {}
+
+
+def _stage_consts(model: Model, device) -> Dict[str, torch.Tensor]:
+    """The implicit stage's constants on `device`: each row's ancestor
+    mask (anc[la] − anc[lb], the world a zero row), diag(damping) and the
+    1e-9·I shift of the Delassus solve."""
+    key = (id(model), str(device))
+    got = _STAGE.get(key)
+    if got is not None and got[0] is model:
+        return got[1]
+    host = collision_program(model, "cpu")
+    nl = model.nl
+    anc_pad = np.concatenate([eng._ancestors(model).astype(np.float64),
+                              np.zeros((1, nl))], 0)
+    la, lb = host.la.numpy(), host.lb.numpy()
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    out = {"mask": f32(anc_pad[la] - anc_pad[lb]),
+           "damp": f32(np.diag(np.asarray(model.jnt_damping, np.float32))),
+           "eps": f32(1e-9 * np.eye(nl)),
+           "ez": f32([0.0, 0.0, 1.0]), "ex": f32([1.0, 0.0, 0.0])}
+    _STAGE[key] = (model, out)
+    return out
+
+
+def implicit_contact_stage(model: Model, qpos, qvel, h: float, warm=None):
+    """Velocity-level implicit contact solve (`model.implicit_contacts`),
+    the JAX engine's `dense.implicit_contact_stage` over a batch: qpos and
+    the smooth-updated qvel (E, nl), `warm` the previous substep's λ
+    (E, warm_size, 3) or None (cold).
+
+    Per contact row: the normal and an orthonormal tangent pair; the
+    generalized directions G = (anc[la] − anc[lb]) ⊙ (S·(x×f, f)) and
+    the exact responses W = (M + h·diag(d) + 1e-9·I)⁻¹Gᵀ (one batched
+    Cholesky); the warm impulses applied up front on the active rows;
+    then GS_SWEEPS Gauss-Seidel sweeps over the rows in order — the
+    normal impulse (λn ≥ 0, targeting vn ≥ 0), then t1 and t2 (zero slip,
+    clamped to the cone ±μ·λn) — and POS_SWEEPS cold sweeps of positional
+    pseudo-impulses at GS_BETA·depth/h whose velocity goes to qpos only
+    (split impulse). A row costs 18 launches per velocity sweep and 4–6
+    per positional sweep: one batched dot, one clamp and one axpy per
+    direction and the λ bookkeeping, on (E, 1, ·) views of row-major
+    tensors prepared once.
+
+    Returns (qvel', per-pair normal force λn/h summed by a one-hot
+    matmul (E, npair), λ (E, warm_size, 3), the positional dq (E, nl))."""
+    dev = qpos.device
+    prog = collision_program(model, dev)
+    sc = _stage_consts(model, dev)
+    kin = forward_kinematics_scan(model, qpos, qvel)
+    D, X, N = _contact_depths_points(model, kin, prog)
+    E, C = D.shape
+    nl = model.nl
+    ref = torch.where(N[..., 2:3].abs() < 0.9, sc["ez"], sc["ex"])
+    T1 = _cross(N, ref)
+    T1 = T1 / (torch.linalg.vector_norm(T1, dim=-1, keepdim=True) + 1e-9)
+    T2 = _cross(N, T1)
+    Fd = torch.stack([N, T1, T2], 1)                         # (E, 3, C, 3)
+    W6 = torch.cat([_cross(X[:, None].expand_as(Fd), Fd), Fd], -1)
+    G = (W6 @ kin.S[:, None].transpose(-1, -2)) * sc["mask"]  # (E,3,C,nl)
+    c = _consts(model, dev)
+    M = mass_matrix(model, kin, spatial_inertias(model, kin), c["anc_f"])
+    L, _ = torch.linalg.cholesky_ex(M + sc["damp"] * h + sc["eps"])
+    Gf = G.reshape(E, 3 * C, nl)
+    W = torch.cholesky_solve(Gf.transpose(1, 2), L).transpose(1, 2)
+    m = 1.0 / ((Gf * W).sum(-1) + 1e-9)                      # (E, 3C)
+    active = (D > 0).to(_f)
+    act3 = active.repeat(1, 3)
+    v = qvel.float()
+    if warm is not None:
+        lam0 = warm.float().transpose(1, 2).reshape(E, 3 * C) * act3
+        v = v + (lam0[:, None] @ W)[:, 0]
+    else:
+        lam0 = torch.zeros_like(act3)
+
+    def by_row(x, tail):
+        """(E, 3C, k) → per direction, per row, contiguous (E, *tail)."""
+        x = x.reshape(E, 3, C, -1).permute(1, 2, 0, 3).contiguous()
+        return [list(d.unbind(0)) for d in x.reshape((3, C, E) + tail)
+                .unbind(0)]
+
+    Gn, Gt1, Gt2 = by_row(Gf, (1, nl))
+    Wn, Wt1, Wt2 = by_row(W, (nl, 1))
+    nmn, nmt1, nmt2 = by_row(-(m * act3)[..., None], (1, 1))
+    ln, lt1, lt2 = by_row(lam0[..., None], (1, 1))
+    mu = prog.mu_host
+    # v, vp and the dot products' scratch are this call's own buffers,
+    # updated in place: each op of the loop is one kernel launch and no
+    # allocation
+    v = v[..., None].clone()                                 # (E, nl, 1)
+    dot = v.new_empty(E, 1, 1)
+    for _ in range(GS_SWEEPS):
+        for i in range(C):
+            torch.bmm(Gn[i], v, out=dot).clamp_(max=0.0)
+            new_n = torch.addcmul(ln[i], nmn[i], dot).clamp_(min=0.0)
+            v.addcmul_(new_n - ln[i], Wn[i])
+            ln[i] = new_n
+            hi, lo = new_n * mu[i], new_n * -mu[i]
+            for Gt, Wt, nmt, lt in ((Gt1, Wt1, nmt1, lt1),
+                                    (Gt2, Wt2, nmt2, lt2)):
+                new_t = torch.addcmul(lt[i], nmt[i], torch.bmm(
+                    Gt[i], v, out=dot)).clamp_(lo, hi)
+                v.addcmul_(new_t - lt[i], Wt[i])
+                lt[i] = new_t
+    # positional pass: d_p = m·(β·D/h − vpn)·active, cold every substep
+    bdh = list((m[:, :C] * active * (GS_BETA * D / h)).T.contiguous()
+               [..., None, None].unbind(0))
+    vp = torch.zeros_like(v)
+    pn = [None] * C
+    for sweep in range(POS_SWEEPS):
+        for i in range(C):
+            t = torch.addcmul(bdh[i], nmn[i], torch.bmm(Gn[i], vp, out=dot))
+            new_p = t.clamp_(min=0.0) if sweep == 0 else (t + pn[i]).clamp_(
+                min=0.0)
+            vp.addcmul_(new_p if sweep == 0 else new_p - pn[i], Wn[i])
+            pn[i] = new_p
+    lam = torch.stack([torch.cat(x, 1)[..., 0] for x in (ln, lt1, lt2)], -1)
+    pf = (lam[..., 0] / h) @ prog.to_pairs
+    return v[..., 0], pf, lam, h * vp[..., 0]
 
 
 def hfield_wrenches(*args, **kwargs):

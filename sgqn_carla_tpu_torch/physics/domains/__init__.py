@@ -43,9 +43,8 @@ def _ensure_imported():
     global _IMPORTED
     if _IMPORTED:
         return
-    # the DMCGB domains and the contact-free and explicit-contact suite
-    # domains; hopper, manipulator, stacker, quadruped, humanoid_CMU and
-    # composer_demo are ROADMAP Queue 1, "Remaining physics"
+    # the DMCGB domains and the suite domains; quadruped, humanoid_CMU
+    # and composer_demo are ROADMAP Queue 1, "Remaining physics"
     from sgqn_carla_tpu_torch.physics.domains import (  # noqa: F401
         ball_in_cup,
         cartpole,
@@ -55,7 +54,9 @@ def _ensure_imported():
         fish,
         humanoid,
         lqr,
+        manipulator,
         reacher,
+        stacker,
         swimmer,
         walker,
     )

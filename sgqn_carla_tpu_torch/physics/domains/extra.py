@@ -1,12 +1,13 @@
-"""More suite domains: pendulum, acrobot, point_mass.
+"""More suite domains: pendulum, acrobot, point_mass, hopper.
 
-Counterpart of `sgqn_carla_tpu/physics/domains/extra.py` (its hopper is
-not ported: it needs the implicit contact solver, ROADMAP Queue 1). The
-same models (dm_control pendulum.xml, acrobot.xml, point_mass.xml) and
+Counterpart of `sgqn_carla_tpu/physics/domains/extra.py`. The same models
+(dm_control pendulum.xml, acrobot.xml, point_mass.xml, hopper.xml) and
 task math over a batch of envs. Point_mass-hard draws two non-parallel
 actuation directions per episode into `PhysState.task_aux["gain"]`
 (E, 2, 2) and mixes the action through them in its own control step
-(`Task.step_fn`).
+(`Task.step_fn`). Hopper (nl 7, the scalar path) takes its contacts
+through the implicit contact solve and keeps its explicit limit springs,
+as the JAX model does.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import torch
 from sgqn_carla_tpu_torch.ops import v3
 from sgqn_carla_tpu_torch.physics import rewards
 from sgqn_carla_tpu_torch.physics.domains import register
-from sgqn_carla_tpu_torch.physics.engine import forward_kinematics
+from sgqn_carla_tpu_torch.physics.engine import (
+    forward_kinematics, subtree_linvel,
+)
 from sgqn_carla_tpu_torch.physics.model import (
     CAPSULE, CYLINDER, HINGE, PLANE, SLIDE, SPHERE, ModelBuilder,
 )
@@ -207,3 +210,105 @@ def point_mass_easy():
 @register("point_mass", "hard")
 def point_mass_hard():
     return _point_mass(True, "point_mass_hard")
+
+
+# -------------------------------------------------------------------- hopper
+def _hopper(hopping, name):
+    b = ModelBuilder(timestep=0.005, integrator="euler")
+    b.add_geom(0, PLANE, size=(50, 1, 0.2), pos=(48, 0, 0), material="grid",
+               contype=1, conaffinity=1, name="floor")
+    # hopper.xml's body geoms keep contype=conaffinity=1: self-collisions
+    # (torso against calf or foot when folded) are live
+    hop = dict(material="self", contype=1, conaffinity=1)
+    torso = b.add_body(0, pos=(0, 0, 1), name="torso")
+    b.add_joint(torso, SLIDE, axis=(1, 0, 0), name="rootx")
+    b.add_joint(torso, SLIDE, axis=(0, 0, 1), name="rootz")
+    b.add_joint(torso, HINGE, axis=(0, 1, 0), name="rooty")
+    b.add_geom(torso, CAPSULE, size=(0.0653,), fromto=(0, 0, -0.05, 0, 0, 0.2),
+               name="torso", **hop)
+    b.add_geom(torso, CAPSULE, size=(0.03,),
+               fromto=(0.08, 0, 0.13, 0.15, 0, 0.14), name="nose", **hop)
+    pelvis = b.add_body(torso, pos=(0, 0, -0.05), name="pelvis")
+    b.add_joint(pelvis, HINGE, axis=(0, 1, 0), limited=True,
+                range=(_D(-30), _D(30)), damping=0.05, armature=0.2,
+                name="waist")
+    b.add_geom(pelvis, CAPSULE, size=(0.065,), fromto=(0, 0, 0, 0, 0, -0.15),
+               name="pelvis", **hop)
+    thigh = b.add_body(pelvis, pos=(0, 0, -0.2), name="thigh")
+    b.add_joint(thigh, HINGE, axis=(0, 1, 0), limited=True,
+                range=(_D(-170), _D(10)), damping=0.05, armature=0.2,
+                name="hip")
+    b.add_geom(thigh, CAPSULE, size=(0.04,), fromto=(0, 0, 0, 0, 0, -0.33),
+               name="thigh", **hop)
+    calf = b.add_body(thigh, pos=(0, 0, -0.33), name="calf")
+    b.add_joint(calf, HINGE, axis=(0, 1, 0), limited=True,
+                range=(_D(5), _D(150)), damping=0.05, armature=0.2,
+                name="knee")
+    b.add_geom(calf, CAPSULE, size=(0.03,), fromto=(0, 0, 0, 0, 0, -0.32),
+               name="calf", **hop)
+    foot = b.add_body(calf, pos=(0, 0, -0.32), name="foot")
+    b.add_joint(foot, HINGE, axis=(0, 1, 0), limited=True,
+                range=(_D(-45), _D(45)), damping=0.05, armature=0.2,
+                name="ankle")
+    b.add_geom(foot, CAPSULE, size=(0.04,), fromto=(-0.08, 0, 0, 0.17, 0, 0),
+               name="foot", **hop)
+    b.add_camera("cam0", pos=(0, -2.8, 0.8), euler_deg=(90, 0, 0),
+                 mode="trackcom", body=torso)
+    for nm, gear in (("waist", 30), ("hip", 40), ("knee", 30), ("ankle", 10)):
+        b.add_actuator(nm, gear=float(gear))
+    # the implicit velocity-level contact solve holds a single-foot
+    # stance that the explicit penalty launches; the limits stay on the
+    # soft explicit springs (the gait presses joints into their ranges
+    # every hop, and the authority-floored implicit stage would stop them
+    # hard)
+    b.implicit_contacts = True
+    b.implicit_limits = False
+    model = b.finalize()
+
+    torso_l, foot_l = 2, 6  # links: rootx, rootz, rooty, waist, hip, ...
+    foot_geom = next(i for i, g in enumerate(model.geoms) if g.name == "foot")
+    foot_pairs = np.array([float(foot_geom in (int(i), int(j)))
+                           for (i, j) in model.contact_pairs], np.float32)
+    foot_mask = {}
+
+    def init_fn(model, gen, num_envs, device):
+        qpos = randomize_limited_and_rotational_joints(model, gen, num_envs,
+                                                       device)
+        return PhysState(qpos, *_rest(qpos, model))
+
+    def observe_fn(model, state):
+        dev = state.qpos.device
+        if dev not in foot_mask:
+            foot_mask[dev] = torch.as_tensor(foot_pairs, device=dev)
+        v = torch.log1p((state.contact_force * foot_mask[dev]).sum(-1))
+        return {"position": state.qpos[:, 1:], "velocity": state.qvel,
+                "touch": torch.stack([v, v], -1)}
+
+    def reward_fn(model, state, kin, ctrl):
+        # torso COM z − foot COM z (hopper.py:78-81, xipos)
+        coms = kin.soa[4]
+        height = v3.full(v3.sub2(coms[torso_l][2], coms[foot_l][2]),
+                         kin.like)
+        standing = rewards.tolerance(height, (0.6, 2.0))
+        if hopping:
+            speed = subtree_linvel(model, kin, torso_l)[:, 0]
+            return standing * rewards.tolerance(
+                speed, bounds=(2.0, float("inf")), margin=1.0,
+                value_at_margin=0.5, sigmoid="linear")
+        small_control = rewards.tolerance(
+            ctrl, margin=1, value_at_margin=0, sigmoid="quadratic").mean(-1)
+        return standing * (small_control + 4) / 5
+
+    return Task(name=name, model=model, n_sub_steps=4, init_fn=init_fn,
+                observe_fn=observe_fn, reward_fn=reward_fn, camera_id=0,
+                time_limit=20.0)
+
+
+@register("hopper", "stand")
+def hopper_stand():
+    return _hopper(False, "hopper_stand")
+
+
+@register("hopper", "hop")
+def hopper_hop():
+    return _hopper(True, "hopper_hop")

@@ -21,9 +21,15 @@ Every entry point runs its matmuls in true f32 (`f32_matmuls`), whatever
 the caller set globally: TF32 products break the dense path's fish
 dynamics, as bf16 ones did on the TPU.
 
+Grasp-class models (hopper, manipulator, stacker) add two stages after
+the smooth velocity update (`step_warm`): the implicit joint limits
+(`_implicit_limit_stage`) and the velocity-level implicit contact solve
+(`dense.implicit_contact_stage`), whose warm-start impulses `n_steps_warm`
+threads through the substeps.
+
 Models outside the ported domains raise `NotImplementedError` naming the
-ROADMAP item that ports them: heightfields, implicit contacts/limits, and
-box or ellipsoid contact pairs.
+ROADMAP item that ports them: heightfields, ellipsoid contact pairs, and
+box pairs under the explicit penalty on the scalar path.
 """
 
 from __future__ import annotations
@@ -173,19 +179,22 @@ _CHECKED: dict = {}
 
 def check_supported(model: Model):
     """Raise for the model features the port does not carry yet:
-    heightfields, implicit contacts and limits, box or ellipsoid contact
-    pairs. Checked once per model."""
+    heightfields, ellipsoid contact pairs, and box pairs where the scalar
+    path's explicit penalty would meet them (box pairs run on the dense
+    path's narrow phase and in the implicit contact stage). Implicit
+    contacts need the Euler integrator, as in the JAX engine. Checked
+    once per model."""
     got = _CHECKED.get(id(model))
     if got is not None and got is model:
         return
     if model.hfield_geom >= 0:
         raise NotImplementedError("heightfield terrain: " + _ROADMAP_PHYSICS)
-    if model.implicit_contacts or model.implicit_limits:
-        raise NotImplementedError(
-            "implicit contacts/limits: " + _ROADMAP_PHYSICS)
+    if model.implicit_contacts and model.integrator == "rk4":
+        raise ValueError("implicit_contacts requires the euler integrator")
+    batched = model.implicit_contacts or model.nl >= _DENSE_NL
     for gi, gj in model.contact_pairs:
         types = {model.geoms[int(gi)].gtype, model.geoms[int(gj)].gtype}
-        if types & {BOX, ELLIPSOID, HFIELD}:
+        if types & {ELLIPSOID, HFIELD} or (BOX in types and not batched):
             raise NotImplementedError(
                 f"box or ellipsoid contact pair (geom types {sorted(types)})"
                 ": " + _ROADMAP_PHYSICS)
@@ -240,6 +249,12 @@ def _consts(model: Model, device) -> dict:
         "frictionloss": t(model.jnt_frictionloss),
         "jnt_ref": t(model.jnt_ref),
     }
+    if model.implicit_limits:
+        # the implicit stage's gains per unit joint-space inertia
+        lim = np.asarray(model.jnt_limited, np.float64)
+        dof_m = np.maximum(constraint_scales(model)[1], 1e-12)
+        out["imp_k"] = t(k * lim / dof_m)
+        out["imp_c"] = t(c * lim / dof_m)
     if model.ft_moment is not None and len(model.ft_stiff):
         out["ft_moment"] = t(model.ft_moment)
         out["ft_stiff"] = t(model.ft_stiff)
@@ -849,13 +864,49 @@ def fluid_taus(model: Model, kin: Kin, anc: np.ndarray, tau):
 
 
 def _limit_gains(model: Model):
-    """Per-dof limit spring/damper of the explicit path: solref gains
-    scaled by the joint-space effective inertia (host numpy)."""
-    if model.implicit_limits:
-        raise NotImplementedError("implicit joint limits: " + _ROADMAP_PHYSICS)
+    """Per-dof limit spring/damper (host numpy): solref gains scaled by the
+    joint-space effective inertia. Under `implicit_limits` the stiffness
+    is floored at the dof's actuator authority / 0.05 rad (position
+    servos count 2·kp) and, on every limited dof, at 50, each raised
+    stiffness critically damped (c = 2·√(k·m)): the implicit stage is
+    stable for any k, and a strong actuator on a light dof (the
+    manipulator's grasp tendon on its digits) would blow through the
+    explicit spring's range."""
     _, dof_m = constraint_scales(model)
     k0, b0, imp = _soft_gains(model)
-    return imp * dof_m * k0, imp * dof_m * b0
+    k = imp * dof_m * k0
+    c = imp * dof_m * b0
+    if not model.implicit_limits:
+        return k, c
+    if model.act_moment is not None and model.act_moment.size:
+        mom = np.abs(np.asarray(model.act_moment, np.float64))  # (nu, nv)
+        fmax = np.ones(mom.shape[0])
+        kind = np.asarray(model.act_kind)
+        if np.any(kind == 1):
+            fmax = np.where(kind == 1, 2.0 * np.asarray(model.act_gain), 1.0)
+        k_new = np.maximum(k, (mom * fmax[:, None]).sum(axis=0) / 0.05)
+        c = np.where(k_new > k, 2.0 * np.sqrt(k_new * dof_m), c)
+        k = k_new
+    k_new = np.maximum(k, 50.0 * np.asarray(model.jnt_limited))
+    c = np.where(k_new > k, 2.0 * np.sqrt(k_new * dof_m), c)
+    return k_new, c
+
+
+def _implicit_limit_stage(model: Model, qpos, qvel, h: float):
+    """qvel (E, nl) corrected by the per-dof backward-Euler solve of the
+    limit spring-damper on the predicted position qpos + h·qvel:
+    v' = (v + h·k·viol/m) / (1 + h·(c + h·k)/m·[violated]), m the
+    joint-space effective inertia; stable for any k."""
+    if not np.any(model.jnt_limited):
+        return qvel
+    c = _consts(model, qpos.device)
+    q_pred = qpos + h * qvel
+    below = torch.clamp(c["lo"] - q_pred, min=0.0)
+    above = torch.clamp(q_pred - c["hi"], min=0.0)
+    viol = ((below > 0) | (above > 0)).to(qvel.dtype)
+    acc = c["imp_k"] * (below - above)
+    return (qvel + h * acc) / (
+        1.0 + h * (c["imp_c"] + h * c["imp_k"]) * viol)
 
 
 def limit_taus(model: Model, qpos, qvel):
@@ -872,7 +923,8 @@ def limit_taus(model: Model, qpos, qvel):
 def applied_taus(model: Model, qpos, qvel, ctrl):
     """Joint-space applied torques (E, nl): actuators (τ = Mᵀ·f; position
     servos f = kp·(ctrl − L), L = M·q), passive fixed-tendon springs, dof
-    damping/stiffness/friction loss and explicit limits. Shared by the
+    damping/stiffness/friction loss and the explicit limits (left out
+    under `implicit_limits`: `step_warm` integrates those). Shared by the
     scalar and the dense path."""
     c = _consts(model, qpos.device)
     tau_vec = torch.zeros_like(qpos)
@@ -895,6 +947,8 @@ def applied_taus(model: Model, qpos, qvel, ctrl):
         tau_vec = tau_vec - c["stiffness"] * (qpos - c["springref"])
     if np.any(model.jnt_frictionloss):
         tau_vec = tau_vec - c["frictionloss"] * torch.tanh(qvel / 0.01)
+    if model.implicit_limits:
+        return tau_vec
     return tau_vec + limit_taus(model, qpos, qvel)
 
 
@@ -917,12 +971,14 @@ def _forward_dynamics(model: Model, qpos, qvel, ctrl, anc):
         tau = tendon_taus(model, kin, anc, tau)
     if model.density > 0 or model.viscosity > 0:
         tau = fluid_taus(model, kin, anc, tau)
-    if len(model.contact_pairs):
+    if len(model.contact_pairs) and not model.implicit_contacts:
         gw = _geom_world_soa(model, kin)
         tau_c, pair_f = contact_taus(model, kin, gw, anc)
         tau = [v3.add2(t, tc) for t, tc in zip(tau, tau_c)]
     else:
-        pair_f = qpos.new_zeros(qpos.shape[:-1] + (0,))
+        # implicit contacts act after the velocity update (step_warm)
+        pair_f = qpos.new_zeros(qpos.shape[:-1] + (
+            len(model.contact_pairs) if model.implicit_contacts else 0,))
     rhs = [v3.sub2(tau[i], C[i]) for i in range(model.nl)]
     qacc = _solve_spd(M, rhs, model.nl)
     return torch.stack([v3.full(a, kin.like) for a in qacc], -1), pair_f
@@ -956,16 +1012,28 @@ def step(model: Model, qpos, qvel, ctrl, hfield=None) -> StepOut:
     (E, nl), ctrl (E, nu). Semi-implicit Euler, or RK4 for models that ask
     for it (contact_force from the first stage, as in the JAX engine).
     Trees of nl ≥ 12 links take the dense path's dynamics
-    (`dense.forward_dynamics`), the same physics as batched matmuls."""
+    (`dense.forward_dynamics`), the same physics as batched matmuls.
+    Implicit-contact models start their solver cold (`step_warm`)."""
+    return step_warm(model, qpos, qvel, ctrl, hfield)[0]
+
+
+@f32_matmuls
+def step_warm(model: Model, qpos, qvel, ctrl, hfield=None, warm=None):
+    """`step` with the implicit contact solver's warm-start impulses: pass
+    the previous substep's λ (E, dense.warm_size(model), 3) as `warm`
+    (None: cold) and feed the returned one forward. Under Euler: the
+    smooth velocity update, the implicit limit stage, the implicit
+    contact stage (its split-impulse dq goes to qpos only), the limit
+    stage again (contact impulses may re-violate a limit), then qpos.
+    Returns (StepOut, warm'); warm' is `warm` for models without
+    implicit contacts."""
     if hfield is not None:
         raise NotImplementedError("heightfield contacts: " + _ROADMAP_PHYSICS)
     check_supported(model)
-    if model.nl >= _DENSE_NL:
-        from sgqn_carla_tpu_torch.physics import dense
+    from sgqn_carla_tpu_torch.physics import dense
 
-        fwd = dense.forward_dynamics
-    else:
-        fwd = _forward_dynamics
+    fwd = (dense.forward_dynamics if model.nl >= _DENSE_NL
+           else _forward_dynamics)
     anc = _ancestors(model)
     h = model.timestep
     qpos = qpos.float()
@@ -980,24 +1048,47 @@ def step(model: Model, qpos, qvel, ctrl, hfield=None) -> StepOut:
         k4a, _ = fwd(model, qpos + h * k3v, k4v, ctrl, anc)
         qvel_n = qvel + h / 6 * (k1a + 2 * k2a + 2 * k3a + k4a)
         qpos_n = qpos + h / 6 * (qvel + 2 * k2v + 2 * k3v + k4v)
-        return StepOut(qpos_n, qvel_n, pf)
+        return StepOut(qpos_n, qvel_n, pf), warm
     qacc, pf = fwd(model, qpos, qvel, ctrl, anc)
     qvel_n = qvel + h * qacc
-    qpos_n = qpos + h * qvel_n
-    return StepOut(qpos_n, qvel_n, pf)
+    if model.implicit_limits:
+        qvel_n = _implicit_limit_stage(model, qpos, qvel_n, h)
+    if model.implicit_contacts and len(model.contact_pairs):
+        qvel_n, pf, warm, dq = dense.implicit_contact_stage(
+            model, qpos, qvel_n, h, warm)
+        if model.implicit_limits:
+            qvel_n = _implicit_limit_stage(model, qpos, qvel_n, h)
+        return StepOut(qpos + h * qvel_n + dq, qvel_n, pf), warm
+    return StepOut(qpos + h * qvel_n, qvel_n, pf), warm
 
 
 @f32_matmuls
 def n_steps(model: Model, qpos, qvel, ctrl, n: int, hfield=None) -> StepOut:
     """`n` substeps under one held control (a Python loop in place of
-    lax.scan); contact_force is the per-pair max over the substeps."""
+    lax.scan); contact_force is the per-pair max over the substeps. An
+    implicit-contact model's solver starts cold and carries its warm
+    start across the substeps (`n_steps_warm`)."""
+    if model.implicit_contacts and len(model.contact_pairs):
+        from sgqn_carla_tpu_torch.physics import dense
+
+        warm0 = qpos.new_zeros((qpos.shape[0], dense.warm_size(model), 3),
+                               dtype=torch.float32)
+        return n_steps_warm(model, qpos, qvel, ctrl, n, warm0, hfield)[0]
+    return n_steps_warm(model, qpos, qvel, ctrl, n, None, hfield)[0]
+
+
+@f32_matmuls
+def n_steps_warm(model: Model, qpos, qvel, ctrl, n: int, warm, hfield=None):
+    """`n_steps` threading the implicit solver's warm-start impulses in
+    and out (`Task.step` keeps them in `PhysState.solver_warm` across
+    control steps). Returns (StepOut, warm')."""
     pf_max = None
     for _ in range(n):
-        out = step(model, qpos, qvel, ctrl, hfield)
+        out, warm = step_warm(model, qpos, qvel, ctrl, hfield, warm)
         qpos, qvel = out.qpos, out.qvel
         pf_max = (out.contact_force if pf_max is None
                   else torch.maximum(pf_max, out.contact_force))
-    return StepOut(qpos, qvel, pf_max)
+    return StepOut(qpos, qvel, pf_max), warm
 
 
 # ------------------------------------------------------------------ sensors

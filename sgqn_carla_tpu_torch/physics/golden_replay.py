@@ -11,8 +11,10 @@ Joints map by name; a free (quaternion) root of the recording maps onto
 the port's slide×3 + hinge×3 root through `quat_to_euler_xyz`, from zero
 angular velocity only (Euler rates are not angular velocity), and is left
 out of the comparison. lqr's linear system takes the recording's
-stiffnesses (`TASK_KWARGS`). Shared by the port's parity tests and
-`chip_smoke.py`.
+stiffnesses (`TASK_KWARGS`); the manipulator's prop joints are named
+`object_*` where the recording says `ball_*` (`NAME_ALIASES`). An
+implicit-contact model starts with its solver cold, as `Task.init`
+leaves it. Shared by the port's parity tests and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from sgqn_carla_tpu_torch.physics.domains import load
 from sgqn_carla_tpu_torch.physics.math3d import quat_to_euler_xyz
-from sgqn_carla_tpu_torch.physics.task import PhysState
+from sgqn_carla_tpu_torch.physics.task import PhysState, with_cold_solver
 
 # (domain, task) -> [(horizon in control steps, max |Δqpos|), ...]
 BOUNDS = {
@@ -43,6 +45,16 @@ BOUNDS = {
     ("swimmer", "swimmer6"): [(10, 1e-3), (50, 0.1)],
     ("fish", "upright"): [(10, 0.1), (25, 0.5)],
     ("humanoid", "stand"): [(5, 0.3), (10, 1.0)],
+    ("hopper", "stand"): [(5, 1e-3), (10, 0.1), (25, 0.8)],
+    ("manipulator", "bring_ball"): [(5, 0.01), (10, 1.1)],
+    ("stacker", "stack_2"): [(5, 0.01), (10, 0.05)],
+}
+
+# recording joint names -> the port's (the manipulator names its prop
+# joints "object_*" in every task)
+NAME_ALIASES = {
+    ("manipulator", "bring_ball"): {
+        "ball_x": "object_x", "ball_z": "object_z", "ball_y": "object_y"},
 }
 
 # per-recording task kwargs: lqr's stiffnesses, drawn from the recording's
@@ -53,17 +65,18 @@ TASK_KWARGS = {
 }
 
 
-def map_state(g, model):
+def map_state(g, model, aliases=None):
     """The recording's initial (qpos, qvel) in the port's joint order, and
-    the indices of the joints shared by name: (qpos, qvel, golden
-    indices, port indices)."""
+    the indices of the joints shared by name (after `aliases`): (qpos,
+    qvel, golden indices, port indices)."""
     jn = list(model.joint_names)
+    aliases = aliases or {}
     qpos = np.zeros(model.nv)
     qvel = np.zeros(model.nv)
     gq, gv = np.asarray(g["qpos"][0]), np.asarray(g["qvel"][0])
     shared_g, shared_ours = [], []
     qi = vi = 0
-    for name in (str(x) for x in g["qpos_names"]):
+    for name in (aliases.get(str(x), str(x)) for x in g["qpos_names"]):
         if name in jn:
             qpos[jn.index(name)] = gq[qi]
             qvel[jn.index(name)] = gv[vi]
@@ -96,10 +109,12 @@ def replay(domain: str, task_name: str, path: str, device="cpu") -> Dict:
     if abs(model.timestep * task.n_sub_steps
            - float(g["control_timestep"])) > 1e-9:
         raise ValueError("control timestep differs from the recording's")
-    qpos, qvel, shared_g, idx = map_state(g, model)
+    qpos, qvel, shared_g, idx = map_state(
+        g, model, NAME_ALIASES.get((domain, task_name)))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    state = PhysState(t(qpos[None]), t(qvel[None]),
-                      t(np.zeros((1, len(model.contact_pairs)))))
+    state = with_cold_solver(model, PhysState(
+        t(qpos[None]), t(qvel[None]),
+        t(np.zeros((1, len(model.contact_pairs))))))
     horizons = BOUNDS[(domain, task_name)]
     T = max(h for h, _ in horizons)
     actions = t(np.asarray(g["actions"])[:T])

@@ -8,7 +8,10 @@ its leading dimension, and episode initialisation draws from a
   observe(phys_state)     -> flat obs dict of (E, ...) tensors
   reward(phys_state, ctrl)-> (E,) tensor
 A domain may replace the control step (`step_fn`), as point_mass-hard
-mixes its action through per-episode gains.
+mixes its action through per-episode gains. Implicit-contact models
+(hopper, manipulator, stacker) carry their contact solver's warm-start
+impulses in `PhysState.solver_warm` from one control step to the next;
+an episode starts cold.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ class PhysState:
     contact_force: torch.Tensor  # (E, npair) latest normal force magnitudes
     task_aux: Any = None         # per-episode task parameters, e.g.
     #                              {"target_xy": (E, 2)}; leading dim E
+    # the implicit contact solver's λ(n, t1, t2) of the last substep,
+    # (E, dense.warm_size(model), 3), for implicit-contact models (None
+    # elsewhere)
+    solver_warm: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "PhysState":
         return replace(self, **kw)
@@ -69,7 +76,8 @@ class Task:
         return int(round(self.time_limit / self.control_timestep()))
 
     def init(self, gen: torch.Generator, num_envs: int, device) -> PhysState:
-        return self.init_fn(self.model, gen, num_envs, device)
+        return with_cold_solver(self.model, self.init_fn(
+            self.model, gen, num_envs, device))
 
     def step(self, state: PhysState, ctrl) -> PhysState:
         if self.step_fn is not None:
@@ -94,10 +102,28 @@ class Task:
         return pg
 
 
+def with_cold_solver(model: Model, state: PhysState) -> PhysState:
+    """`state` with a zero `solver_warm` (E, warm_size, 3) for an
+    implicit-contact model, as `Task.init` gives; unchanged otherwise."""
+    if not (model.implicit_contacts and len(model.contact_pairs)):
+        return state
+    from sgqn_carla_tpu_torch.physics import dense
+
+    return state.replace(solver_warm=state.qpos.new_zeros(
+        (state.qpos.shape[0], dense.warm_size(model), 3)))
+
+
 def physics_step(model: Model, n_sub_steps: int, state: PhysState,
                  ctrl) -> PhysState:
     """`n_sub_steps` engine substeps under `ctrl` (the default control
-    step; a `step_fn` builds on it)."""
+    step; a `step_fn` builds on it), threading `solver_warm` where the
+    state has one."""
+    if state.solver_warm is not None:
+        out, warm = engine.n_steps_warm(model, state.qpos, state.qvel, ctrl,
+                                        n_sub_steps, state.solver_warm)
+        return state.replace(qpos=out.qpos, qvel=out.qvel,
+                             contact_force=out.contact_force,
+                             solver_warm=warm)
     out = engine.n_steps(model, state.qpos, state.qvel, ctrl, n_sub_steps)
     return state.replace(qpos=out.qpos, qvel=out.qvel,
                          contact_force=out.contact_force)

@@ -106,10 +106,14 @@ def _isect_plane(o, d, n, p0, ex, ey, size):
 
 
 def _isect_sphere(o, d, c, r):
+    """Ray (unit d) vs sphere. The discriminant is r² − |perp|² with
+    perp = oc − b·d, the line's closest point to the centre: the textbook
+    b² − (|oc|² − r²) cancels where |oc| ≫ r (the manipulator's fixed
+    camera 16 m off, 8-mm tip spheres: r² is a few ulps of |oc|²)."""
     oc = v3.sub(o, c)
     b = v3.dot(d, oc)
-    cc = v3.dot(oc, oc) - r * r
-    disc = b * b - cc
+    perp = v3.sub(oc, v3.scale(d, b))
+    disc = r * r - v3.dot(perp, perp)
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     t = -b - sq
     valid = (disc > 0) & (t > 1e-4)

@@ -63,7 +63,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # normal, headlight, clamp). Used for the kernel's operation bound.
 FLOPS_RAY = 33
 FLOPS_CULL = 6
-FLOPS_GEOM = {PLANE: 40, SPHERE: 16, CAPSULE: 69, CYLINDER: 69, BOX: 64,
+FLOPS_GEOM = {PLANE: 40, SPHERE: 26, CAPSULE: 89, CYLINDER: 89, BOX: 64,
               ELLIPSOID: 56}
 FLOPS_SHADE = 47
 # absolute slack of a bounding radius (m); csrc/raycast.cu adds a relative

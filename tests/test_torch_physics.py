@@ -169,7 +169,7 @@ def test_walker_walk_golden_trajectory():
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdomains.load("hopper", "stand")
+        tdomains.load("quadruped", "walk")
 
 
 def test_math3d_helpers_match():
@@ -187,20 +187,22 @@ def test_math3d_helpers_match():
 
 
 @pytest.mark.parametrize("change", [
-    {"implicit_limits": True}, {"torso_gtype": BOX},
-    {"implicit_contacts": True}, {"hfield_geom": 0},
+    {"implicit_limits": True, "torso_gtype": ELLIPSOID}, {"torso_gtype": BOX},
+    {"implicit_contacts": True, "torso_gtype": ELLIPSOID}, {"hfield_geom": 0},
     {"torso_gtype": ELLIPSOID}])
 def test_unported_model_features_raise(change):
-    """Implicit contacts and limits, heightfields, and box or ellipsoid
-    contact pairs (walker's torso made a box or an ellipsoid: its pair
-    with the floor) are ROADMAP Queue 1."""
+    """Heightfields, ellipsoid contact pairs (under the explicit penalty,
+    the implicit limits or the implicit contact stage) and box pairs under
+    the scalar path's explicit penalty (walker's torso made an ellipsoid
+    or a box: its pair with the floor) are ROADMAP Queue 1; implicit
+    contacts and limits themselves are ported."""
     tt = tdomains.load("walker", "walk")
-    if "torso_gtype" in change:
-        m = tt.model.replace(geoms=[
-            dataclasses.replace(g, gtype=change["torso_gtype"])
-            if g.name == "torso" else g for g in tt.model.geoms])
-    else:
-        m = tt.model.replace(**change)
+    change = dict(change)
+    gtype = change.pop("torso_gtype", None)
+    m = tt.model.replace(**change)
+    if gtype is not None:
+        m = m.replace(geoms=[dataclasses.replace(g, gtype=gtype)
+                             if g.name == "torso" else g for g in m.geoms])
     q = torch.zeros(1, tt.model.nl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.step(m, q, q, torch.zeros(1, 6))

@@ -133,9 +133,7 @@ def test_point_mass_hard_gains_are_unit_and_not_parallel():
 
 
 def test_unported_suite_domains_raise():
-    for domain, task in (("hopper", "stand"), ("manipulator", "bring_ball"),
-                         ("stacker", "stack_2"), ("quadruped", "walk"),
-                         ("humanoid_CMU", "stand"),
+    for domain, task in (("quadruped", "walk"), ("humanoid_CMU", "stand"),
                          ("composer_demo", "pendula")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tdomains.load(domain, task)

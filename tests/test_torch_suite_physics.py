@@ -254,19 +254,35 @@ def test_entry_points_pin_f32_matmuls(monkeypatch):
 
 @pytest.mark.parametrize("gtype", [BOX, ELLIPSOID])
 def test_box_and_ellipsoid_pairs_raise_on_the_dense_path(gtype):
-    """Humanoid's head turned into a box or an ellipsoid: its pairs
-    (against the floor and the limbs) are ROADMAP Queue 1."""
+    """Humanoid's head turned into an ellipsoid: its pairs (against the
+    floor and the limbs) are ROADMAP Queue 1, in the penalty contacts and
+    in the implicit contact stage alike, as are heightfields. Turned into
+    a 0.09 m cube, its pairs run since the point–box category was ported:
+    corner rows against the floor, point–box rows against the limbs."""
     import dataclasses
 
     tt = tdomains.load("humanoid", "walk")
-    geoms = [dataclasses.replace(g, gtype=gtype) if g.name == "head" else g
-             for g in tt.model.geoms]
+    size = np.full(3, 0.09) if gtype == BOX else None
+    geoms = [dataclasses.replace(g, gtype=gtype, size=(
+        g.size if size is None else size)) if g.name == "head" else g
+        for g in tt.model.geoms]
     m = tt.model.replace(geoms=geoms)
     q = torch.zeros(1, m.nv)
+    if gtype == BOX:
+        prog = dense.collision_program(m, "cpu")
+        base = dense.collision_program(tt.model, "cpu")
+        assert prog.npb > 0 and prog.npp == base.npp + 7  # 8 corners, not 1
+        out = tengine.step(m, q, q, torch.zeros(1, m.nu))
+        assert torch.isfinite(out.qpos).all()
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dense.hfield_wrenches(m)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.step(m, q, q, torch.zeros(1, m.nu))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dense.collision_program(m, "cpu")
-    for fn in (dense.implicit_contact_stage, dense.hfield_wrenches):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(m)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dense.implicit_contact_stage(m.replace(implicit_contacts=True), q, q,
+                                     m.timestep)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dense.hfield_wrenches(m)

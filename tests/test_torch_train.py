@@ -225,7 +225,8 @@ def test_attribution_images_match_jax_grids_and_names(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"domain_name": "hopper", "task_name": "stand"}, "Remaining physics"),
+    ({"domain_name": "humanoid_CMU", "task_name": "stand"},
+     "Remaining physics"),
     ({"replay_spill": "host"}, "Host-spill"),
     ({"mesh_data_axis": 2}, "Multi-GPU"),
     ({"domain_name": "quadruped", "task_name": "walk"},

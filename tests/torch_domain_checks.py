@@ -119,9 +119,10 @@ def check_substeps(jt, tt, q, qd, ctrl, n=2):
 
 
 def check_reward_obs(jt, tt, q, qd, ctrl, aux=None, contact_force=None,
-                     atol=FK_TOL):
+                     atol=FK_TOL, jit=False):
     """Rewards and observations on the same states, task_aux and contact
-    forces injected into both sides, within `atol` (FK_TOL by default)."""
+    forces injected into both sides, within `atol` (FK_TOL by default);
+    the JAX side jitted with `jit` (faster for the dense-path models)."""
     E = q.shape[0]
     npair = len(jt.model.contact_pairs)
     cf = (np.zeros((E, npair), np.float32) if contact_force is None
@@ -132,8 +133,9 @@ def check_reward_obs(jt, tt, q, qd, ctrl, aux=None, contact_force=None,
         s = JPhysState(q1, qd1, cf1, task_aux=a1)
         return jt.reward(s, c1), jt.observe(s)
 
-    jrew, jobs = jax.vmap(one)(jnp.asarray(q), jnp.asarray(qd),
-                               jnp.asarray(cf), jnp.asarray(ctrl), jaux)
+    f = jax.jit(jax.vmap(one)) if jit else jax.vmap(one)
+    jrew, jobs = f(jnp.asarray(q), jnp.asarray(qd), jnp.asarray(cf),
+                   jnp.asarray(ctrl), jaux)
     s = PhysState(t(q), t(qd), t(cf),
                   task_aux=None if aux is None
                   else {k: t(v) for k, v in aux.items()})
@@ -282,3 +284,87 @@ def check_pallas_scene(jt, tt, q, aux=None, excused=(), cap=0):
     return (set(np.unique(plain[1].numpy()).tolist()),
             kc.compare_frames(pallas, exact)[1],
             kc.compare_frames(jplain, exact)[1])
+
+
+# ---------------------------------------------------- the grasp domains
+GRASP_TASKS = [("hopper", "stand"), ("hopper", "hop"),
+               ("manipulator", "bring_ball"), ("manipulator", "bring_peg"),
+               ("manipulator", "insert_ball"), ("manipulator", "insert_peg"),
+               ("stacker", "stack_2"), ("stacker", "stack_4")]
+
+
+def squeeze_states(model):
+    """(qpos, qvel) (2, nv) of the manipulator's ball squeezed between the
+    gripper tips at the grasp pose (tests/test_grasp.py's `grasp_rollout`
+    with arm angles 0): thumb and finger closed to 0.25 and 0.3 rad, so
+    4 tip rows are 2–6 mm deep; the digits closing, the ball falling."""
+    jn = list(model.joint_names)
+    kin = tengine.forward_kinematics(model, torch.zeros(1, model.nv),
+                                     torch.zeros(1, model.nv))
+    tip = lambda n: kin.p[0, model.body_last_link[
+        model.body_names.index(n)]].numpy()
+    mid = (tip("thumbtip") + tip("fingertip")) / 2
+    q = np.zeros((2, model.nv), np.float32)
+    qd = np.zeros((2, model.nv), np.float32)
+    for e, ang in enumerate((0.25, 0.3)):
+        q[e, jn.index("object_x")] = mid[0] + 0.002 * e
+        q[e, jn.index("object_z")] = mid[2]
+        q[e, [jn.index("thumb"), jn.index("finger")]] = ang
+        qd[e, [jn.index("thumb"), jn.index("finger")]] = 0.5 + e
+        qd[e, jn.index("object_z")] = -0.3
+        qd[e, jn.index("object_x")] = 0.05 * (1 - 2 * e)
+    return q, qd
+
+
+def stack_states(model):
+    """(qpos, qvel) (2, nv) of stack_2 with live rows of each category:
+    box0 resting 0.5 mm deep on the floor (corner rows), box1 pressed up
+    against the thumb's tip spheres 1 mm deep (point–box rows), the arm
+    straight up; env 1's box1 turned 0.1 rad and shifted 2 mm; box0 at
+    one substep of free fall, box1 rising and sliding. (Box on box gives
+    no live row in
+    this planar scene, in JAX as here: every corner of one box lies on
+    the other's y faces, at depth 0.)"""
+    jn = list(model.joint_names)
+    q = np.zeros((2, model.nv), np.float32)
+    qd = np.zeros((2, model.nv), np.float32)
+    s = 0.022
+    kin = tengine.forward_kinematics(model, torch.zeros(1, model.nv),
+                                     torch.zeros(1, model.nv))
+    _, pg = tengine.geom_world(model, kin)
+    tips = [i for i, g in enumerate(model.geoms)
+            if g.name in ("thumbtip1", "thumbtip2")]
+    tip = pg[0, tips].mean(0).numpy()
+    r = float(model.geoms[tips[0]].size[0])
+    for e in range(2):
+        q[e, jn.index("box0_x")] = 0.2
+        q[e, jn.index("box0_z")] = s - 0.0005
+        q[e, jn.index("box1_x")] = tip[0] + 0.002 * e
+        q[e, jn.index("box1_z")] = tip[2] - r - s + 0.001
+        q[e, jn.index("box1_y")] = 0.1 * e
+        qd[e, [jn.index("box0_z"), jn.index("box1_z")]] = (-0.0098, 0.01)
+        qd[e, jn.index("box1_x")] = 0.02 * (1 - 2 * e)
+    return q, qd
+
+
+_STAGES = {}
+
+
+def jax_stage(jm, q, qd, warm=None):
+    """JAX's `dense.implicit_contact_stage` on a batch (vmapped, jitted
+    once per model, f32 matmuls): (qvel', pf, λ, dq) as numpy. Cold is a
+    zero warm carry (the same arithmetic as JAX's warm=None: λ starts at
+    0 and v + 0·W = v)."""
+    from sgqn_carla_tpu.physics import dense as jdense
+
+    if id(jm) not in _STAGES:
+        anc = jengine._ancestors(jm)
+        _STAGES[id(jm)] = (jm, jax.jit(jax.vmap(
+            lambda a, b, w: jdense.implicit_contact_stage(
+                jm, a, b, jm.timestep, anc, w))))
+    if warm is None:
+        warm = np.zeros((q.shape[0], jdense.warm_size(jm), 3), np.float32)
+    with jax.default_matmul_precision("float32"):
+        out = _STAGES[id(jm)][1](jnp.asarray(q), jnp.asarray(qd),
+                                  jnp.asarray(warm))
+    return [np.asarray(x) for x in out]
