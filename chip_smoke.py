@@ -151,7 +151,7 @@ Phases, each printing one JSON line:
  12. grasp_domains  hopper stand and hop, manipulator bring_ball,
               bring_peg, insert_ball, insert_peg, stacker stack_2 and
               stack_4 (the implicit contact solver) at 16 envs and 84 px:
-              reset and 2 random wrapper steps (finite state, carry and
+              reset and 1 random wrapper step (finite state, carry and
               rewards), the env step's ms and split, a substep's
               device-busy ms and idle share, eager ops of a substep, of
               the contact stage and of a control step (n_sub substeps
@@ -169,12 +169,31 @@ Phases, each printing one JSON line:
               --algorithm sgsac at full width and 8 envs, as
               cartpole_trainer (the solver's carry in the resumed env
               states)
- 13. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
+ 13. legged_domains  quadruped walk, run, escape and fetch, humanoid_CMU
+              stand and run (the dense path with the ellipsoid
+              categories, the filter servos, escape's terrain) at 16 envs
+              and 84 px, with TF32 allowed globally: reset and 2 random
+              wrapper steps (finite state and rewards, one kernel launch
+              per render), the env step's ms split into physics,
+              rewards, the terrain pass (escape) and render, eager ops
+              of a substep, a control step, the terrain pass and an env
+              step, the device idle share of an env step and the terrain
+              pass's device-busy ms, reset s, the kernel on each scene
+              against the plain version
+     legged_goldens  the golden MuJoCo trajectories of quadruped walk
+              and humanoid_CMU stand on the card and on the CPU: the
+              card's within tests/test_parity.py's bounds and within a
+              tenth of each bound of the CPU's
+     escape_trainer  train --domain_name quadruped --task_name escape
+              --algorithm sgsac at full width and 8 envs, as
+              cartpole_trainer; resume/S2 restores the terrains with
+              every other leaf bit for bit
+ 14. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
      offline_eval, algorithms, pad_trainer, pad_offline_eval,
      external_data, dmcgb_domains, cartpole_trainer,
      distracting_cs_dmcgb, suite_domains, humanoid_trainer,
-     grasp_domains, hopper_trainer; the kernel's times on each domain's
-     scene), then
+     grasp_domains, hopper_trainer, legged_domains, escape_trainer; the
+     kernel's times on each domain's scene), then
      the card's nvidia-smi line, then {"ok": true, "device": {...}} as
      the last line. The work dir build/chip_smoke_logs/ is emptied first.
 
@@ -197,7 +216,7 @@ DEV = "cuda"  # every phase's device
 # episodes of EP steps; SAC and SGQN train to S2 (warm-up to S1), saves
 # at S1 and S2, eval at S2; the resume and the PAD run go on to S3. The
 # widths are the published ones; only this depth is cut.
-EP = 5
+EP = 4
 S1, S2, S3 = 2 * EP, 4 * EP, 5 * EP
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -1413,7 +1432,7 @@ def stage_launches(model, phys, per_row=False):
     return out
 
 
-def grasp_row(domain, task, raycast, kc, E=16, steps=2, full_count=False):
+def grasp_row(domain, task, raycast, kc, E=16, steps=1, full_count=False):
     """One grasp task at E envs and 84 px: reset and `steps` random
     wrapper steps (finite state, carry and rewards; one kernel launch per
     render); the env step's ms; its split (physics: action_repeat × one
@@ -1677,13 +1696,15 @@ def humanoid_trainer_phase(cfg, smi, raycast):
                                 "humanoid", "walk")
 
 
-def domain_trainer_phase(cfg, smi, raycast, phase, domain, task, **kw):
+def domain_trainer_phase(cfg, smi, raycast, phase, domain, task,
+                         check_restored=None, **kw):
     """SGQN through the training CLI on one domain at 8 envs and full
     width, episodes of EP wrapper steps: saves with the ring at S1 and
     S2, video_hard evaluated at S2 with the 448-px recording; resume/S2
     restored into fresh objects bit for bit; a second call resumes at S2
-    and trains to S3. Returns (ok, kernel launches of training and
-    eval)."""
+    and trains to S3. `check_restored(restored, out)` adds its own
+    checks of the restored tree ({"ok": ..., ...}, into the line).
+    Returns (ok, kernel launches of training and eval)."""
     import numpy as np
 
     from sgqn_carla_tpu_torch.core.config import parse_args
@@ -1717,11 +1738,13 @@ def domain_trainer_phase(cfg, smi, raycast, phase, domain, task, **kw):
     video_ok = (frames.shape == (EP, 448, 448, 3) and frames.dtype == np.uint8
                 and bool(frames.std() > 0))
     ev = tm["eval"]
-    differ, restore_s, _ = restore_check(parse_args(argv), out, make_env)
+    differ, restore_s, restored = restore_check(parse_args(argv), out,
+                                                make_env)
+    extra = check_restored(restored, out) if check_restored else {"ok": True}
     resumed, last = resumed_call(train_cli.main, run_argv(train_steps=S3),
                                  wd)
     ok = (finite and aux_nonzero and eval_ok and video_ok and _on_cuda(st)
-          and not differ and resumed and launches > 0
+          and not differ and extra["ok"] and resumed and launches > 0
           and all(e["launches"] > 0 for e in ev.values())
           and all(_finite(last[k]) for k in losses))
     emit({"phase": phase, "ok": ok, "card": smi,
@@ -1735,6 +1758,7 @@ def domain_trainer_phase(cfg, smi, raycast, phase, domain, task, **kw):
           "losses_finite": finite, "aux_loss_nonzero_once": aux_nonzero,
           "eval_ok": eval_ok, "video_ok": video_ok,
           "resume_bit_identical": not differ, "differing_leaves": differ[:10],
+          "restored_checks": extra,
           "restore_s": restore_s, "resume_bytes": tm["resume_bytes"],
           "resumed_to_S3": resumed, "resumed_final_row": last,
           "kernel_launches": launches,
@@ -1817,6 +1841,179 @@ def distracting_dmcgb_phase(cfg, smi, raycast, kc):
     emit({"phase": "distracting_cs_dmcgb", "ok": ok, "card": smi,
           "phase_s": time.time() - start, **res})
     return ok, launches
+
+
+# ---- quadruped (the terrain) and humanoid_CMU: the ellipsoid categories
+LEGGED = (("quadruped", "walk"), ("quadruped", "run"),
+          ("quadruped", "escape"), ("quadruped", "fetch"),
+          ("humanoid_CMU", "stand"), ("humanoid_CMU", "run"))
+LEGGED_GOLDENS = (("quadruped", "walk"), ("humanoid_CMU", "stand"))
+
+
+def legged_row(domain, task, raycast, kc, E=16, steps=2):
+    """One legged task at E envs and 84 px: reset and `steps` random
+    wrapper steps (finite state and rewards; one kernel launch per
+    render); the env step's ms and its split (physics: action_repeat
+    control steps; rewards; the terrain pass over the kernel's output,
+    escape only; render, the pass included); eager ops of a substep, a
+    control step, the terrain pass and an env step; the device idle
+    share of an env step and the terrain pass's device-busy ms; the
+    kernel on the posed scene against the plain version. Returns (ok,
+    row, launches of the reset and steps)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.envs import make_env
+    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
+    from sgqn_carla_tpu_torch.physics import engine
+
+    env = make_env(domain, task, image_size=84, episode_length=1000,
+                   device=DEV)
+    venv = VectorEnv(env, E)
+    m = env.task.model
+    g = torch.Generator(DEV).manual_seed(11)
+    raycast.launches = 0
+    t0 = time.time()
+    states, obs = venv.reset(g)
+    torch.cuda.synchronize()
+    reset_s = time.time() - t0
+    step_ms, rewards = [], []
+    for _ in range(steps):
+        a = torch.rand((E, env.action_size), generator=g, device=DEV) * 2 - 1
+        torch.cuda.synchronize()
+        t0 = time.time()
+        states, res = venv.step(states, a)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        rewards.append(res.reward)
+    launches = raycast.launches
+    phys = states.phys
+    terrain = (phys.task_aux["terrain"] if m.hfield_geom >= 0 else None)
+    rew = torch.stack(rewards)
+    finite = bool(torch.isfinite(rew).all()
+                  and torch.isfinite(phys.qpos).all()
+                  and torch.isfinite(phys.qvel).all())
+    physics = lambda: [env.task.step(phys, a)
+                       for _ in range(env.action_repeat)]
+    reward = lambda: [env.task.reward(phys, a)
+                      for _ in range(env.action_repeat)]
+    render = lambda: env._render_frame(states)
+    substep = lambda: engine.step(m, phys.qpos, phys.qvel, a, terrain)
+    parts = {"physics": _timed_ms(physics), "rewards": _timed_ms(reward),
+             "render": _timed_ms(render, 3)}
+    ops = {"substep": _count_ops(substep),
+           "control_step": _count_ops(lambda: env.task.step(phys, a)),
+           "env_step": _count_ops(lambda: env.step(states, a)),
+           "rewards": _count_ops(reward), "render": _count_ops(render)}
+    scene = env.scene(states)
+    kargs = {k: v for k, v in scene.items()
+             if k not in ("background", "bg_mask_materials", "hfield")}
+    terrain_row = None
+    if terrain is not None:
+        kout = raycast.render_batch(**kargs, with_depth=True)
+        tpass = lambda: raycast.terrain_pass(
+            m, terrain, scene["app"], scene["cam_pos"], scene["cam_R"],
+            scene["fovy"], 84, 84, *kout)
+        parts["terrain_pass"] = _timed_ms(tpass, 3)
+        ops["terrain_pass"] = _count_ops(tpass)
+        _, t_busy, t_top = kc.profiled(tpass, 1)
+        rgb, seg, depth = tpass()
+        drawn = float((seg == m.hfield_geom).float().mean())
+        terrain_row = {"ms": parts["terrain_pass"], "device_busy_ms": t_busy,
+                       "eager_ops": ops["terrain_pass"],
+                       "top_kernels_ms": t_top, "terrain_pixel_share": drawn,
+                       "frames": E, "size": 84}
+    ms = statistics.median(step_ms)
+    _, busy, top = kc.profiled(lambda: env.step(states, a), 1)
+    params = raycast._pack_params(kargs["Rg"], kargs["pg"], kargs["app"],
+                                  kargs["cam_pos"], kargs["cam_R"])
+    krow = kernel_row(raycast, kc, m, params, scene["fovy"], 84)
+    ok = (finite and tuple(obs.shape) == (E, 9, 84, 84)
+          and launches == 1 + steps and krow["ok"]
+          and (terrain_row is None or terrain_row["terrain_pixel_share"] > 0))
+    return ok, {
+        "ok": ok, "finite": finite, "num_envs": E, "reset_s": reset_s,
+        "substeps_per_env_step": env.task.n_sub_steps * env.action_repeat,
+        "contact_rows": len(m.contact_pairs), "nl": m.nl,
+        "ms_per_env_step": ms, "env_step_ms_runs": step_ms,
+        "breakdown_ms": parts, "device_busy_ms": busy,
+        "device_idle_share": _idle(busy, ms), "top_kernels_ms": top,
+        "eager_ops": ops, "terrain_pass": terrain_row,
+        "kernel_launches": launches, "reward_mean": float(rew.mean()),
+        "kernel": krow}, launches
+
+
+def legged_domains_phase(smi, raycast, kc):
+    """The six legged tasks (legged_row each at 16 envs) with TF32 allowed
+    globally: the physics pins its own matmuls. Returns (ok, rows,
+    kernel launches)."""
+    import torch
+
+    start = time.time()
+    ok, rows, launches = True, {}, 0
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for domain, task in LEGGED:
+            t0 = time.time()
+            good, row, n = legged_row(domain, task, raycast, kc)
+            row["phase_s"] = time.time() - t0
+            ok &= good
+            launches += n
+            rows[f"{domain}_{task}"] = row
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "legged_domains", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "tf32_allowed": True,
+          "domains": rows})
+    return ok, rows, launches
+
+
+def legged_goldens_phase(smi):
+    """The golden MuJoCo trajectories of quadruped walk and humanoid_CMU
+    stand on the card and on the CPU: the card's within
+    tests/test_parity.py's bounds, and each horizon's deviation within a
+    tenth of its bound of the CPU's."""
+    from sgqn_carla_tpu_torch.physics import golden_replay
+
+    start = time.time()
+    ok, goldens = True, {}
+    for domain, task in LEGGED_GOLDENS:
+        path = os.path.join(REPO, "tests", "golden", f"{domain}_{task}.npz")
+        t0 = time.time()
+        card = golden_replay.replay(domain, task, path, device=DEV)
+        card_s = time.time() - t0
+        cpu = golden_replay.replay(domain, task, path, device="cpu")
+        near = all(abs(a[2] - b[2]) <= 0.1 * a[1]
+                   for a, b in zip(card["horizons"], cpu["horizons"]))
+        ok &= card["ok"] and cpu["ok"] and near
+        goldens[f"{domain}_{task}"] = {
+            "card": card, "cpu": cpu, "card_within_tenth_of_cpu": near,
+            "card_minus_cpu": [a[2] - b[2] for a, b in zip(
+                card["horizons"], cpu["horizons"])], "card_s": card_s}
+    emit({"phase": "legged_goldens", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "golden_trajectories": goldens})
+    return ok
+
+
+def escape_trainer_phase(cfg, smi, raycast):
+    """`train --domain_name quadruped --task_name escape --algorithm
+    sgsac` at full width, 8 envs, as cartpole_trainer: the terrain's
+    physics, rangefinders and render pass under SGQN, video_hard at S2
+    (its grid masking after the terrain pass), resume/S2 bit for bit, the
+    terrains and filter activations of the env states included."""
+    import torch
+
+    def terrains(restored, out):
+        got = restored["states"].phys.task_aux
+        want = out["env_state"][0].phys.task_aux
+        same = {k: bool(torch.equal(got[k], want[k])) for k in want}
+        return {"ok": all(same.values()) and tuple(
+            got["terrain"].shape[1:]) == (201, 201),
+            "task_aux_restored": same,
+            "terrain_shape": list(got["terrain"].shape)}
+
+    return domain_trainer_phase(cfg, smi, raycast, "escape_trainer",
+                                "quadruped", "escape",
+                                check_restored=terrains)
 
 
 def main():
@@ -2043,7 +2240,18 @@ def main():
     if not ok_ho:
         return 1
 
-    # ---- 13. kernels line, card line, result
+    # ---- 13. quadruped (the terrain) and humanoid_CMU: env, launches and
+    # kernel on each, the goldens on the card and the CPU, SGQN on escape
+    ok_lg, lg_rows, lg_launches = legged_domains_phase(smi, raycast, kc)
+    if not ok_lg:
+        return 1
+    if not legged_goldens_phase(smi):
+        return 1
+    ok_es, es_launches = escape_trainer_phase(cfg, smi, raycast)
+    if not ok_es:
+        return 1
+
+    # ---- 14. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -2065,10 +2273,13 @@ def main():
                              "suite_domains": su_launches,
                              "humanoid_trainer": hu_launches,
                              "grasp_domains": gr_launches,
-                             "hopper_trainer": ho_launches},
+                             "hopper_trainer": ho_launches,
+                             "legged_domains": lg_launches,
+                             "escape_trainer": es_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [
             d["kernel"] for d in list(dm_rows.values())
-            + list(su_rows.values()) + list(gr_rows.values())]),
+            + list(su_rows.values()) + list(gr_rows.values())
+            + list(lg_rows.values())]),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
         "device_ms_unculled": main_row["kernel_device_ms_unculled"],
@@ -2089,7 +2300,8 @@ def main():
                 "kernel_device_ms_unculled",
                 "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                 "identical", "seg_mismatch_max")}
-            for name, d in {**dm_rows, **su_rows, **gr_rows}.items()},
+            for name, d in {**dm_rows, **su_rows, **gr_rows,
+                            **lg_rows}.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,7 +19,9 @@ batch as its leading dimension and episode starts draw from a
   * the episode ends only at the time limit (DMC semantics),
     max_episode_steps = ceil(episode_length / action_repeat);
   * every frame is rendered by the CUDA ray-cast kernel
-    (render/raycast.py::render_frames) when the env lives on the card.
+    (render/raycast.py::render_frames) when the env lives on the card;
+    quadruped escape's terrain (`task_aux["terrain"]`, carried in the env
+    state and its checkpoints) is drawn over it by the plain terrain pass.
 
 `reset` takes injected draws beside the generator (the initial physics,
 the color rows, the video clips, the distracting walk's draws), and
@@ -141,7 +143,8 @@ class DMCPixelEnv:
     def scene(self, state: EnvState, size: Optional[int] = None) -> Dict:
         """The arguments of `render_frames` for the current frames at
         `size` px: the posed scene, the camera, the video background of
-        the video modes and the materials it replaces."""
+        the video modes and the materials it replaces, a heightfield
+        model's terrains."""
         model = self.task.model
         size = size or self.image_size
         kin = engine.forward_kinematics(model, state.phys.qpos,
@@ -175,9 +178,13 @@ class DMCPixelEnv:
                     antialias=True).permute(0, 2, 3, 1)
             if self.mode == "video_hard":
                 bg_mats = ("grid",)
+        # a heightfield model's per-episode terrains (quadruped escape)
+        hfield = (state.phys.task_aux["terrain"] if model.hfield_geom >= 0
+                  else None)
         return dict(model=model, Rg=Rg, pg=pg, app=state.appearance,
                     cam_pos=cam.pos, cam_R=cam.R, fovy=cam.fovy, H=size,
-                    W=size, background=background, bg_mask_materials=bg_mats)
+                    W=size, background=background, bg_mask_materials=bg_mats,
+                    hfield=hfield)
 
     def _render_frame(self, state: EnvState,
                       size: Optional[int] = None) -> torch.Tensor:

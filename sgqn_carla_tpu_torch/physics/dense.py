@@ -21,11 +21,15 @@ batch of envs:
   * the SPD solve is a batched Cholesky (`cholesky_ex`, no host check)
     and `cholesky_solve`, with the JAX path's 1e-10 shift.
 
-The narrow phase carries the point–plane (spheres, capsule and cylinder
-ends, box corners), point–box (sample points of spheres, capsules,
-cylinders and boxes against a box) and segment–segment categories of the
-JAX `CollisionProgram`, in its row order; ellipsoid pairs and
-heightfields raise `NotImplementedError` naming ROADMAP Queue 1.
+The narrow phase carries every category of the JAX `CollisionProgram`, in
+its row order: point–plane (spheres, capsule and cylinder ends, box
+corners), ellipsoid–plane (the support point along −n), point–box (sample
+points of spheres, capsules, cylinders, boxes and ellipsoids against a
+box), point–ellipsoid (the same samples against an ellipsoid, by the
+scaled-space distance) and segment–segment. `hfield_wrenches` is the
+heightfield's (quadruped escape's terrain): sample spheres of every
+colliding geom against the bilinear surface (`physics/hfield.py`), its
+forces after the pairs'.
 
 `implicit_contact_stage` is the grasp domains' velocity-level contact
 solve (hopper, manipulator, stacker; any nl): projected Gauss-Seidel
@@ -321,18 +325,24 @@ class CollisionProgram(NamedTuple):
     """The batched narrow phase compiled from the model's pair list, on
     one device. Rows in the JAX program's order: point–plane (npp:
     spheres, capsule and cylinder ends, each a point with a radius, and
-    box corners of radius 0), point–box (npb: a sphere's centre, five
-    points along a capsule or cylinder axis, a box's eight corners,
-    against a box; box–box pairs both ways), segment–segment (nss:
-    spheres as zero-length segments). Per row its geoms, offsets, radii,
-    friction and gains, and the one-hot matrices that send its wrench to
-    its links (+a, −b) and its normal force to its pair."""
+    box corners of radius 0), ellipsoid–plane (nep), point–box (npb: a
+    sphere's centre, five points along a capsule or cylinder axis, a
+    box's eight corners, an ellipsoid's six axis points, against a box;
+    box–box pairs both ways), point–ellipsoid (npe: the same samples
+    against an ellipsoid), segment–segment (nss: spheres as zero-length
+    segments). Per row its geoms, offsets, radii, friction and gains, and
+    the one-hot matrices that send its wrench to its links (+a, −b) and
+    its normal force to its pair."""
 
     npp: int
+    nep: int
     npb: int
+    npe: int
     nss: int
     pp: Dict[str, torch.Tensor]
+    ep: Dict[str, torch.Tensor]
     pb: Dict[str, torch.Tensor]
+    pe: Dict[str, torch.Tensor]
     ss: Dict[str, torch.Tensor]
     mu: torch.Tensor           # (P,) friction of every row
     kp: torch.Tensor           # (P,) inertia-scaled stiffness
@@ -346,7 +356,9 @@ class CollisionProgram(NamedTuple):
 
 
 def _pt_samples(g):
-    """Local sample points and their radius of a geom against a box."""
+    """Local sample points and their radius of a geom against a box or an
+    ellipsoid. An ellipsoid gives its six axis extremes, pulled in by its
+    smallest semi-axis, which is their radius."""
     if g.gtype == SPHERE:
         return [(0.0, 0.0, 0.0)], float(g.size[0])
     if g.gtype in (CAPSULE, CYLINDER):
@@ -355,8 +367,12 @@ def _pt_samples(g):
             float(g.size[0])
     if g.gtype == BOX:
         return _corners(g), 0.0
-    raise NotImplementedError(
-        f"point–box sampling of geom type {g.gtype}: " + eng._ROADMAP_PHYSICS)
+    if g.gtype == ELLIPSOID:
+        sx, sy, sz = (float(x) for x in g.size)
+        r = min(sx, sy, sz)
+        return [(sx - r, 0, 0), (r - sx, 0, 0), (0, sy - r, 0),
+                (0, r - sy, 0), (0, 0, sz - r), (0, 0, r - sz)], r
+    raise NotImplementedError(f"point sampling of geom type {g.gtype}")
 
 
 def _corners(g):
@@ -368,22 +384,37 @@ def _corners(g):
 def _build_program(model: Model, device) -> CollisionProgram:
     nl = model.nl
     pp = {k: [] for k in ("geom", "off", "r", "plane")}
+    ep = {k: [] for k in ("geom", "plane", "size")}
     pb = {k: [] for k in ("geom_pt", "off", "r", "geom_box", "size")}
+    pe = {k: [] for k in ("geom_pt", "off", "r", "geom_el", "size")}
     ss = {k: [] for k in ("geom_a", "geom_b", "hl_a", "hl_b", "r_a", "r_b")}
-    rows = {"pp": [], "pb": [], "ss": []}  # (link_a, link_b, pair, mu)
+    # per category: (link_a, link_b, pair, mu)
+    rows = {"pp": [], "ep": [], "pb": [], "pe": [], "ss": []}
+
+    def samples(cat, key, pt_g, pt_id, other_g, other_id, pi, mu):
+        """The point geom's samples against a box or an ellipsoid."""
+        offs, r = _pt_samples(pt_g)
+        for off in offs:
+            cat["geom_pt"].append(pt_id)
+            cat["off"].append(off)
+            cat["r"].append(r)
+            cat[key].append(other_id)
+            cat["size"].append([float(x) for x in other_g.size])
+            rows["pb" if key == "geom_box" else "pe"].append(
+                (pt_g.link, other_g.link, pi, mu))
+
     for pi, (gi, gj) in enumerate(np.asarray(model.contact_pairs)):
         a, b = model.geoms[int(gi)], model.geoms[int(gj)]
         ga, gb = int(gi), int(gj)
         if a.gtype == PLANE:
             a, b, ga, gb = b, a, gb, ga
         mu = max(a.friction, b.friction)
-        if ELLIPSOID in (a.gtype, b.gtype):
-            kind = ("ellipsoid–plane" if b.gtype == PLANE
-                    else "point–ellipsoid")
-            raise NotImplementedError(
-                f"{kind} contact category (geom types {a.gtype} vs "
-                f"{b.gtype}): " + eng._ROADMAP_PHYSICS)
-        if b.gtype == PLANE:
+        if b.gtype == PLANE and a.gtype == ELLIPSOID:
+            ep["geom"].append(ga)
+            ep["plane"].append(gb)
+            ep["size"].append([float(x) for x in a.size])
+            rows["ep"].append((a.link, b.link, pi, mu))
+        elif b.gtype == PLANE:
             if a.gtype == BOX:
                 pts = [(off, 0.0) for off in _corners(a)]
             elif a.gtype in _ROUND:
@@ -392,8 +423,7 @@ def _build_program(model: Model, device) -> CollisionProgram:
                        [((0.0, 0.0, -float(a.size[1])), r),
                         ((0.0, 0.0, float(a.size[1])), r)])
             else:
-                raise NotImplementedError(
-                    f"plane vs geom type {a.gtype}: " + eng._ROADMAP_PHYSICS)
+                raise NotImplementedError(f"plane vs geom type {a.gtype}")
             for off, r in pts:
                 pp["geom"].append(ga)
                 pp["off"].append(off)
@@ -415,21 +445,19 @@ def _build_program(model: Model, device) -> CollisionProgram:
                     if a.gtype == BOX and b.gtype == BOX else
                     [(b, gb, a, ga)] if a.gtype == BOX else [(a, ga, b, gb)])
             for pt_g, pt_id, box_g, box_id in ways:
-                offs, r = _pt_samples(pt_g)
-                for off in offs:
-                    pb["geom_pt"].append(pt_id)
-                    pb["off"].append(off)
-                    pb["r"].append(r)
-                    pb["geom_box"].append(box_id)
-                    pb["size"].append([float(x) for x in box_g.size])
-                    rows["pb"].append((pt_g.link, box_g.link, pi, mu))
+                samples(pb, "geom_box", pt_g, pt_id, box_g, box_id, pi, mu)
+        elif ELLIPSOID in (a.gtype, b.gtype):
+            # the other geom's samples against the ellipsoid (an
+            # ellipsoid pair: a's samples against b)
+            if a.gtype == ELLIPSOID:
+                a, b, ga, gb = b, a, gb, ga
+            samples(pe, "geom_el", a, ga, b, gb, pi, mu)
         else:
             raise NotImplementedError(
-                f"contact pair {a.gtype} vs {b.gtype}: "
-                + eng._ROADMAP_PHYSICS)
-    allrows = rows["pp"] + rows["pb"] + rows["ss"]
+                f"contact pair {a.gtype} vs {b.gtype}")
+    allrows = sum((rows[k] for k in ("pp", "ep", "pb", "pe", "ss")), [])
     npair = len(model.contact_pairs)
-    m_eff, _ = eng.constraint_scales(model)
+    m_eff = eng.constraint_scales(model)[0][:npair]  # heightfield rows after
     k0, b0, imp = eng._soft_gains(model)
     one_static = np.asarray(
         [(model.geoms[int(gi)].link < 0) != (model.geoms[int(gj)].link < 0)
@@ -445,15 +473,22 @@ def _build_program(model: Model, device) -> CollisionProgram:
     to_pairs[np.arange(P), pair] = 1.0
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     idx = lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device)
+    v3s = lambda x: f32(np.reshape(x, (-1, 3)))
     gains = lambda g: f32(g[pair] if P else np.zeros(0))
     mu = [float(np.float32(r[3])) for r in allrows]
     return CollisionProgram(
-        npp=len(rows["pp"]), npb=len(rows["pb"]), nss=len(rows["ss"]),
+        npp=len(rows["pp"]), nep=len(rows["ep"]), npb=len(rows["pb"]),
+        npe=len(rows["pe"]), nss=len(rows["ss"]),
         pp={"geom": idx(pp["geom"]), "plane": idx(pp["plane"]),
-            "off": f32(np.reshape(pp["off"], (-1, 3))), "r": f32(pp["r"])},
+            "off": v3s(pp["off"]), "r": f32(pp["r"])},
+        ep={"geom": idx(ep["geom"]), "plane": idx(ep["plane"]),
+            "s2": v3s(np.square(np.asarray(ep["size"], np.float32)))},
         pb={"geom_pt": idx(pb["geom_pt"]), "geom_box": idx(pb["geom_box"]),
-            "off": f32(np.reshape(pb["off"], (-1, 3))), "r": f32(pb["r"]),
-            "size": f32(np.reshape(pb["size"], (-1, 3)))},
+            "off": v3s(pb["off"]), "r": f32(pb["r"]),
+            "size": v3s(pb["size"])},
+        pe={"geom_pt": idx(pe["geom_pt"]), "geom_el": idx(pe["geom_el"]),
+            "off": v3s(pe["off"]), "r": f32(pe["r"]),
+            "size": v3s(pe["size"])},
         ss={"geom_a": idx(ss["geom_a"]), "geom_b": idx(ss["geom_b"]),
             **{k: f32(ss[k]) for k in ("hl_a", "hl_b", "r_a", "r_b")}},
         mu=f32(mu),
@@ -479,8 +514,8 @@ def collision_program(model: Model, device) -> CollisionProgram:
 
 def _contact_depths_points(model: Model, kin: eng.Kin, prog):
     """The batched narrow phase: depth (E, P), point (E, P, 3) and normal
-    (E, P, 3) of every row, pp rows, then pb, then ss; normals point from
-    geom b toward geom a."""
+    (E, P, 3) of every row, in the categories' order pp, ep, pb, pe, ss;
+    normals point from geom b toward geom a."""
     Rg, pg = geom_world(model, kin)
     depth, point, normal = [], [], []
     if prog.npp:
@@ -489,6 +524,21 @@ def _contact_depths_points(model: Model, kin: eng.Kin, prog):
         n = Rg[:, d["plane"], :, 2]
         dist = (n * x).sum(-1) - (n * pg[:, d["plane"]]).sum(-1)
         depth.append(d["r"] - dist)
+        point.append(x - n * dist[..., None])
+        normal.append(n)
+    if prog.nep:
+        # the ellipsoid's support point along −n:
+        # x = c − R·(S²·Rᵀn)/√(nᵀR S² Rᵀn)
+        d = prog.ep
+        Re, c = Rg[:, d["geom"]], pg[:, d["geom"]]
+        n = Rg[:, d["plane"], :, 2]
+        d0 = (n * pg[:, d["plane"]]).sum(-1)
+        nl = _mv(Re.transpose(-1, -2), n)        # the normal, local frame
+        w = d["s2"] * nl
+        denom = torch.sqrt((nl * w).sum(-1) + 1e-12)
+        x = c - _mv(Re, w) / denom[..., None]
+        dist = (n * x).sum(-1) - d0
+        depth.append(-dist)
         point.append(x - n * dist[..., None])
         normal.append(n)
     if prog.npb:
@@ -511,6 +561,24 @@ def _contact_depths_points(model: Model, kin: eng.Kin, prog):
         dist = torch.where(outside, dist_out, -fd_min)
         n = _mv(Rb, torch.where(outside[..., None],
                                 delta / dist_out[..., None], n_in))
+        depth.append(d["r"] - dist)
+        point.append(x - n * dist[..., None])
+        normal.append(n)
+    if prog.npe:
+        # a sample point in the ellipsoid's frame: the scaled-space
+        # distance (|q/s| − 1)·|q|/|q/s|, the normal along q/s²
+        d = prog.pe
+        x = pg[:, d["geom_pt"]] + _mv(Rg[:, d["geom_pt"]], d["off"])
+        Re = Rg[:, d["geom_el"]]
+        q = _mv(Re.transpose(-1, -2), x - pg[:, d["geom_el"]])
+        s = d["size"]
+        u = q / s
+        nu = torch.sqrt((u * u).sum(-1) + 1e-12)
+        qn = torch.sqrt((q * q).sum(-1) + 1e-12)
+        dist = (nu - 1.0) * qn / nu
+        n_l = q / (s * s)
+        n_l = n_l / torch.sqrt((n_l * n_l).sum(-1, keepdim=True) + 1e-12)
+        n = _mv(Re, n_l)
         depth.append(d["r"] - dist)
         point.append(x - n * dist[..., None])
         normal.append(n)
@@ -578,7 +646,7 @@ def penetration_depths_batched(model: Model, qpos) -> torch.Tensor:
     kin = eng.forward_kinematics(model, q, torch.zeros_like(q))
     prog = collision_program(model, q.device)
     lead = torch.full_like(q[:, :1], -1.0)
-    if not prog.npp + prog.npb + prog.nss:
+    if not warm_size(model):
         return lead
     return torch.cat([lead, _contact_depths_points(model, kin, prog)[0]], 1)
 
@@ -621,12 +689,95 @@ def tendon_wrenches(model: Model, kin: eng.Kin) -> torch.Tensor:
                         torch.stack(wrenches, 1))
 
 
+# ---------------------------------------------------------- heightfield
+_HFIELD: dict = {}
+
+
+def _hfield_consts(model: Model, device) -> Dict[str, torch.Tensor]:
+    """The heightfield narrow phase's constants on `device`: every sample
+    sphere of `model.hfield_pairs` (its geom, local offset, radius,
+    friction and gains, the last len(hfield_pairs) effective masses of
+    `constraint_scales`), and the one-hot matrices that send its wrench
+    to its link and its normal force to its hfield row."""
+    key = (id(model), str(device))
+    got = _HFIELD.get(key)
+    if got is not None and got[0] is model:
+        return got[1]
+    nh = len(model.hfield_pairs)
+    m_eff, _ = eng.constraint_scales(model)
+    k0, b0, imp = eng._soft_gains(model)
+    m_h = np.asarray(m_eff[-nh:])
+    gid, off, rad, link, row, mu = [], [], [], [], [], []
+    for h_i, (g_i, pts) in enumerate(model.hfield_pairs):
+        g = model.geoms[g_i]
+        for lp, r in pts:
+            gid.append(g_i)
+            off.append(lp)
+            rad.append(r)
+            link.append(g.link)
+            row.append(h_i)
+            mu.append(g.friction)
+    K = len(gid)
+    to_links = np.zeros((K, model.nl))
+    to_links[np.arange(K), link] = 1.0
+    to_rows = np.zeros((K, nh))
+    to_rows[np.arange(K), row] = 1.0
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    row = np.asarray(row)
+    gh = model.geoms[model.hfield_geom]
+    out = {"geom": torch.as_tensor(gid, device=device),
+           "link": torch.as_tensor(link, device=device),
+           "off": f32(np.reshape(off, (-1, 3))), "r": f32(rad),
+           "mu": f32(np.asarray(mu, np.float32)),
+           "kp": f32((imp * m_h * k0)[row]), "kd": f32((imp * m_h * b0)[row]),
+           "ka": f32((imp * m_h)[row]), "to_links": f32(to_links),
+           "to_rows": f32(to_rows), "half": float(gh.size[0]),
+           "z0": float(gh.pos[2])}
+    _HFIELD[key] = (model, out)
+    return out
+
+
+def hfield_wrenches(model: Model, kin: eng.Kin, terrain: torch.Tensor):
+    """((E, nl, 6) wrenches, (E, len(hfield_pairs)) normal forces) of the
+    per-episode terrains (E, res, res) (`physics/hfield.py`): each
+    colliding geom's sample spheres against the bilinear surface, the
+    smooth-penalty analogue of MuJoCo's prism decomposition, with the
+    pairs' inertia-scaled gains, the gravity feed-forward of a static
+    side and regularised Coulomb friction. A sphere's depth is its
+    vertical penetration projected on the normal."""
+    from sgqn_carla_tpu_torch.physics import hfield as hf
+
+    c = _hfield_consts(model, kin.like.device)
+    Rg, pg = geom_world(model, kin)
+    X = pg[:, c["geom"]] + _mv(Rg[:, c["geom"]], c["off"])     # (E, K, 3)
+    h, n = hf.sample(terrain, X[..., 0], X[..., 1], c["half"], c["z0"])
+    n = torch.stack(n, -1)
+    depth = (h - (X[..., 2] - c["r"])) * n[..., 2]
+    va = kin.v[:, c["link"]]
+    v_rel = _cross(va[..., :3], X) + va[..., 3:]
+    vn = (v_rel * n).sum(-1)
+    fn = c["kp"] * depth - c["kd"] * vn
+    g = [float(np.float32(x)) for x in model.gravity]
+    if any(g):  # −g·n: the static terrain's gravity feed-forward
+        fn = fn - c["ka"] * sum(n[..., k] * g[k] for k in range(3) if g[k])
+    fn = torch.clamp(fn, min=0.0) * (depth > 0).to(_f)
+    vt = v_rel - n * vn[..., None]
+    vt_norm = torch.sqrt((vt * vt).sum(-1)) + 1e-6
+    ft_scale = -c["mu"] * fn * torch.tanh(vt_norm / 0.01) / vt_norm
+    f3 = n * fn[..., None] + vt * ft_scale[..., None]
+    wr = torch.cat([_cross(X, f3), f3], -1)
+    return (torch.einsum("kl,ekj->elj", c["to_links"], wr),
+            fn @ c["to_rows"])
+
+
 # ------------------------------------------------------------- dynamics
-def forward_dynamics(model: Model, qpos, qvel, ctrl, anc=None):
-    """(qacc (E, nv), per-pair normal forces (E, npair)): the dense-path
-    twin of `engine._forward_dynamics`. Implicit dof damping (h·D in the
-    matrix) only under Euler, as in the JAX path; the 1e-10 shift stays
-    small (fish fins have min-eigenvalues near 1e-7)."""
+def forward_dynamics(model: Model, qpos, qvel, ctrl, anc=None, hfield=None):
+    """(qacc (E, nv), normal forces (E, npair [+ len(hfield_pairs)])):
+    the dense-path twin of `engine._forward_dynamics`. Implicit dof
+    damping (h·D in the matrix) only under Euler, as in the JAX path; the
+    1e-10 shift stays small (fish fins have min-eigenvalues near 1e-7).
+    A model with a heightfield takes the terrains (E, res, res) as
+    `hfield`; their forces follow the pairs'."""
     c = _consts(model, qpos.device)
     anc_f = c["anc_f"]
     kin = eng.forward_kinematics(model, qpos, qvel)
@@ -647,6 +798,14 @@ def forward_dynamics(model: Model, qpos, qvel, ctrl, anc=None):
         # implicit contacts act after the velocity update (step_warm)
         pair_f = qpos.new_zeros(qpos.shape[:-1] + (
             len(model.contact_pairs) if model.implicit_contacts else 0,))
+    if model.hfield_pairs:
+        if hfield is None:
+            raise ValueError(
+                "model has an hfield geom: pass the terrain grid via "
+                "engine.step/n_steps(..., hfield=...)")
+        Fh, pf_h = hfield_wrenches(model, kin, hfield)
+        F = Fh if F is None else F + Fh
+        pair_f = torch.cat([pair_f, pf_h], -1)
     if F is not None:
         tau = tau + project_wrenches(kin, anc_f, F)
     L, _ = torch.linalg.cholesky_ex(M + c["shift"])
@@ -658,7 +817,7 @@ def warm_size(model: Model) -> int:
     """Rows of the implicit solver's warm-start carry: every contact row
     of the narrow phase (the static shape of `PhysState.solver_warm`)."""
     prog = collision_program(model, "cpu")
-    return prog.npp + prog.npb + prog.nss
+    return prog.npp + prog.nss + prog.nep + prog.npb + prog.npe
 
 
 _STAGE: dict = {}
@@ -780,9 +939,3 @@ def implicit_contact_stage(model: Model, qpos, qvel, h: float, warm=None):
     lam = torch.stack([torch.cat(x, 1)[..., 0] for x in (ln, lt1, lt2)], -1)
     pf = (lam[..., 0] / h) @ prog.to_pairs
     return v[..., 0], pf, lam, h * vp[..., 0]
-
-
-def hfield_wrenches(*args, **kwargs):
-    """Heightfield contacts (quadruped's terrain): not ported."""
-    raise NotImplementedError("heightfield contacts: "
-                              + eng._ROADMAP_PHYSICS)

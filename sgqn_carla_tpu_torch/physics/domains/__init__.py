@@ -43,8 +43,8 @@ def _ensure_imported():
     global _IMPORTED
     if _IMPORTED:
         return
-    # the DMCGB domains and the suite domains; quadruped, humanoid_CMU
-    # and composer_demo are ROADMAP Queue 1, "Remaining physics"
+    # the DMCGB domains and the suite domains; composer_demo is ROADMAP
+    # Queue 1, "Remaining physics"
     from sgqn_carla_tpu_torch.physics.domains import (  # noqa: F401
         ball_in_cup,
         cartpole,
@@ -53,8 +53,10 @@ def _ensure_imported():
         finger,
         fish,
         humanoid,
+        humanoid_cmu,
         lqr,
         manipulator,
+        quadruped,
         reacher,
         stacker,
         swimmer,

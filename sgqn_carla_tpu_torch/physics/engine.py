@@ -27,9 +27,11 @@ the smooth velocity update (`step_warm`): the implicit joint limits
 (`dense.implicit_contact_stage`), whose warm-start impulses `n_steps_warm`
 threads through the substeps.
 
-Models outside the ported domains raise `NotImplementedError` naming the
-ROADMAP item that ports them: heightfields, ellipsoid contact pairs, and
-box pairs under the explicit penalty on the scalar path.
+Heightfield contacts (quadruped escape's terrain) run on the dense path
+only, as in the JAX engine: `step`, `n_steps` and `n_steps_warm` take the
+terrains as `hfield=`. Box and ellipsoid pairs under the scalar path's
+explicit penalty raise `NotImplementedError` naming the ROADMAP item that
+ports them (no ported model sends one there).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 
 from sgqn_carla_tpu_torch.ops import v3
 from sgqn_carla_tpu_torch.physics.model import (
-    BOX, CAPSULE, CYLINDER, ELLIPSOID, HFIELD, HINGE, PLANE, SPHERE, Model,
+    BOX, CAPSULE, CYLINDER, ELLIPSOID, HINGE, PLANE, SPHERE, Model,
 )
 
 _ROADMAP_PHYSICS = "ROADMAP Queue 1, 'Remaining physics'"
@@ -178,26 +180,29 @@ _CHECKED: dict = {}
 
 
 def check_supported(model: Model):
-    """Raise for the model features the port does not carry yet:
-    heightfields, ellipsoid contact pairs, and box pairs where the scalar
-    path's explicit penalty would meet them (box pairs run on the dense
-    path's narrow phase and in the implicit contact stage). Implicit
-    contacts need the Euler integrator, as in the JAX engine. Checked
-    once per model."""
+    """Raise for the model features the scalar path does not carry:
+    heightfields (the JAX engine's scalar path refuses them too), and
+    ellipsoid or box pairs under its explicit penalty (ROADMAP; no ported
+    model sends one there: they run on the dense path's narrow phase,
+    nl ≥ 12, and in the implicit contact stage). Implicit contacts need
+    the Euler integrator, as in the JAX engine. Checked once per model."""
     got = _CHECKED.get(id(model))
     if got is not None and got is model:
         return
-    if model.hfield_geom >= 0:
-        raise NotImplementedError("heightfield terrain: " + _ROADMAP_PHYSICS)
     if model.implicit_contacts and model.integrator == "rk4":
         raise ValueError("implicit_contacts requires the euler integrator")
+    if model.hfield_geom >= 0 and model.nl < _DENSE_NL:
+        raise NotImplementedError(
+            "heightfield contacts on the scalar path (nl < "
+            f"{_DENSE_NL}): the JAX engine runs them on the dense path only")
     batched = model.implicit_contacts or model.nl >= _DENSE_NL
     for gi, gj in model.contact_pairs:
         types = {model.geoms[int(gi)].gtype, model.geoms[int(gj)].gtype}
-        if types & {ELLIPSOID, HFIELD} or (BOX in types and not batched):
+        if types & {ELLIPSOID, BOX} and not batched:
             raise NotImplementedError(
                 f"box or ellipsoid contact pair (geom types {sorted(types)})"
-                ": " + _ROADMAP_PHYSICS)
+                " under the scalar path's explicit penalty: "
+                + _ROADMAP_PHYSICS)
     _CHECKED[id(model)] = model
 
 
@@ -703,6 +708,16 @@ def constraint_scales(model: Model):
         else:
             mob = float(np.linalg.eigvalsh(A)[-1])
         m_eff[p_i] = min(1.0 / max(mob, 1e-8), cap)
+    # heightfield rows follow the pairs, normal ≈ +z (the terrain's slopes
+    # stay under 45°: the vertical mobility is the scale)
+    if model.hfield_pairs:
+        up = np.array([0.0, 0.0, 1.0])
+        m_h = np.zeros(len(model.hfield_pairs))
+        for h_i, (gid, _pts) in enumerate(model.hfield_pairs):
+            J = point_jac(model.geoms[int(gid)].link, pg[int(gid)])
+            A = J @ Minv @ J.T
+            m_h[h_i] = min(1.0 / max(float(up @ A @ up), 1e-8), cap)
+        m_eff = np.concatenate([m_eff, m_h])
     dof_m = 1.0 / np.maximum(np.diag(Minv), 1e-12)
     _SCALES_CACHE[key] = (model, m_eff, dof_m)
     return m_eff, dof_m
@@ -1013,7 +1028,9 @@ def step(model: Model, qpos, qvel, ctrl, hfield=None) -> StepOut:
     for it (contact_force from the first stage, as in the JAX engine).
     Trees of nl ≥ 12 links take the dense path's dynamics
     (`dense.forward_dynamics`), the same physics as batched matmuls.
-    Implicit-contact models start their solver cold (`step_warm`)."""
+    Implicit-contact models start their solver cold (`step_warm`). A
+    model with a heightfield takes its terrains (E, res, res) as
+    `hfield`; their normal forces follow the pairs' in contact_force."""
     return step_warm(model, qpos, qvel, ctrl, hfield)[0]
 
 
@@ -1027,14 +1044,14 @@ def step_warm(model: Model, qpos, qvel, ctrl, hfield=None, warm=None):
     stage again (contact impulses may re-violate a limit), then qpos.
     Returns (StepOut, warm'); warm' is `warm` for models without
     implicit contacts."""
-    if hfield is not None:
-        raise NotImplementedError("heightfield contacts: " + _ROADMAP_PHYSICS)
     check_supported(model)
     from sgqn_carla_tpu_torch.physics import dense
 
-    fwd = (dense.forward_dynamics if model.nl >= _DENSE_NL
-           else _forward_dynamics)
     anc = _ancestors(model)
+    if model.nl >= _DENSE_NL:
+        fwd = lambda *a: dense.forward_dynamics(*a, hfield=hfield)
+    else:
+        fwd = _forward_dynamics
     h = model.timestep
     qpos = qpos.float()
     qvel = qvel.float()

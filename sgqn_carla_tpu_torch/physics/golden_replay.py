@@ -10,9 +10,12 @@ domains, the measured penalty-solver or fluid deviation for the others).
 Joints map by name; a free (quaternion) root of the recording maps onto
 the port's slide×3 + hinge×3 root through `quat_to_euler_xyz`, from zero
 angular velocity only (Euler rates are not angular velocity), and is left
-out of the comparison. lqr's linear system takes the recording's
-stiffnesses (`TASK_KWARGS`); the manipulator's prop joints are named
-`object_*` where the recording says `ball_*` (`NAME_ALIASES`). An
+out of the comparison. A task with its own control step (quadruped's
+filter servos) starts from `Task.init`'s episode state with the
+recording's qpos and qvel, as tests/test_parity.py starts it. lqr's
+linear system takes the recording's stiffnesses (`TASK_KWARGS`); the
+manipulator's prop joints are named `object_*` where the recording says
+`ball_*` (`NAME_ALIASES`). An
 implicit-contact model starts with its solver cold, as `Task.init`
 leaves it. Shared by the port's parity tests and `chip_smoke.py`.
 """
@@ -45,6 +48,8 @@ BOUNDS = {
     ("swimmer", "swimmer6"): [(10, 1e-3), (50, 0.1)],
     ("fish", "upright"): [(10, 0.1), (25, 0.5)],
     ("humanoid", "stand"): [(5, 0.3), (10, 1.0)],
+    ("quadruped", "walk"): [(5, 0.25), (25, 1.0)],
+    ("humanoid_CMU", "stand"): [(5, 0.4), (10, 0.6)],
     ("hopper", "stand"): [(5, 1e-3), (10, 0.1), (25, 0.8)],
     ("manipulator", "bring_ball"): [(5, 0.01), (10, 1.1)],
     ("stacker", "stack_2"): [(5, 0.01), (10, 0.05)],
@@ -112,9 +117,16 @@ def replay(domain: str, task_name: str, path: str, device="cpu") -> Dict:
     qpos, qvel, shared_g, idx = map_state(
         g, model, NAME_ALIASES.get((domain, task_name)))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    aux = None
+    if task.step_fn is not None:
+        # a task with its own control step keeps episode state beside the
+        # physics (quadruped's filter activations, zero at a start): it
+        # comes from task.init, whose qpos and qvel the recording replaces
+        aux = task.init(torch.Generator(device).manual_seed(0), 1,
+                        device).task_aux
     state = with_cold_solver(model, PhysState(
         t(qpos[None]), t(qvel[None]),
-        t(np.zeros((1, len(model.contact_pairs))))))
+        t(np.zeros((1, len(model.contact_pairs)))), task_aux=aux))
     horizons = BOUNDS[(domain, task_name)]
     T = max(h for h, _ in horizons)
     actions = t(np.asarray(g["actions"])[:T])

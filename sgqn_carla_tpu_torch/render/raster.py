@@ -2,9 +2,13 @@
 
 Counterpart of `sgqn_carla_tpu/render/raster.py` (`Camera`, `Appearance`,
 `default_appearance`, the `_isect_*` primitives, `_checker_rgb`, `_sky_rgb`,
-`_trace_geom`, `render_scene`). These are the plain math the CUDA ray-cast
-kernel (`csrc/raycast.cu`) computes per ray and that its plain PyTorch
-version (`render/raycast.py::render_batch_ref`) runs on whole tensors.
+`_trace_geom`, `render_scene`, `_trace_hfield` as `trace_hfield`). These
+are the plain math the CUDA ray-cast kernel (`csrc/raycast.cu`) computes
+per ray and that its plain PyTorch version
+(`render/raycast.py::render_batch_ref`) runs on whole tensors; the
+heightfield terrain is not a kernel geom (`closest_hit` skips it, as JAX's
+`_trace_geom` does) but a pass of its own after the closest hit,
+`trace_hfield`.
 `render_scene` is the JAX plain renderer batched over envs, with per-
 material plane shaders (the CARLA twin's ring road); it has no kernel,
 as the JAX one has none.
@@ -317,6 +321,36 @@ def closest_hit(model: Model, o, d, frame, color, plane_fn):
         c_min = v3.where(closer, col, c_min)
         seg = torch.where(closer, i, seg)
     return t_min, n_min, c_min, seg
+
+
+def trace_hfield(model: Model, hfield: torch.Tensor, o, d):
+    """Closest hit of rays (o, d) against the heightfield terrains hfield
+    (E, res, res): a slab clip to the terrain's box, then the fixed-step
+    march and bisection of `physics/hfield.py`. Returns (t, _INF where
+    missed; the surface normal). The counterpart of JAX
+    `render/raster.py::_trace_hfield`."""
+    from sgqn_carla_tpu_torch.physics import hfield as hf
+
+    g = model.geoms[model.hfield_geom]
+    half = float(g.size[0])
+    z0 = float(g.pos[2])
+    zmax = z0 + float(g.size[2]) + 0.01
+    t_lo = torch.zeros_like(d[0])
+    t_hi = torch.full_like(d[0], 4.0 * half)
+    for oc, dc, lo, hi in ((o[0], d[0], -half, half),
+                           (o[1], d[1], -half, half),
+                           (o[2], d[2], z0 - 0.2, zmax)):
+        inv = 1.0 / torch.where(dc.abs() < 1e-9, 1e-9, dc)
+        ta = (lo - oc) * inv
+        tb = (hi - oc) * inv
+        t_lo = torch.maximum(t_lo, torch.minimum(ta, tb))
+        t_hi = torch.minimum(t_hi, torch.maximum(ta, tb))
+    valid = t_hi > torch.clamp(t_lo, min=0.0)
+    t_lo = torch.clamp(t_lo, min=1e-4)
+    t, n, hit = hf.raycast_segment(
+        hfield.to(d[0].dtype), o, d, t_lo, torch.maximum(t_hi, t_lo + 1e-3),
+        half=half, z0=z0)
+    return torch.where(hit & valid, t, _INF), n
 
 
 def render_scene(model: Model, Rg: torch.Tensor, pg: torch.Tensor,

@@ -15,7 +15,15 @@ out.
                     on whole (E, P) tensors; same signature and outputs.
   render_frames     env entry point with the contract of
                     `sgqn_carla_tpu/render/fast.py::render_scene_fast`,
-                    batched: background composite, uint8 rgb, CHW.
+                    batched: the terrain pass, background composite,
+                    uint8 rgb, CHW.
+  terrain_pass      a heightfield model's terrain (quadruped escape),
+                    plain PyTorch on any device, composited over the
+                    kernel's (or the plain version's) output where it is
+                    closer than their depth: the rule of JAX's
+                    `render_scene_fast`, where the terrain is also an XLA
+                    pass beside the Pallas kernel. The kernel never sees
+                    the HFIELD geom.
   ops_needed        the kernel's operation count for given inputs (its
                     culling skips what no ray can hit), with the plain
                     bounding test `ray_may_hit`; used for its bound and by
@@ -38,7 +46,7 @@ import torch
 
 from sgqn_carla_tpu_torch.ops import v3
 from sgqn_carla_tpu_torch.physics.model import (
-    BOX, CAPSULE, CYLINDER, ELLIPSOID, PLANE, SPHERE, Model,
+    BOX, CAPSULE, CYLINDER, ELLIPSOID, HFIELD, PLANE, SPHERE, Model,
 )
 from sgqn_carla_tpu_torch.render import raster
 from sgqn_carla_tpu_torch.render.raster import Appearance
@@ -73,11 +81,17 @@ CULL_SLACK = 1e-3
 _CULL_REL = 1e-5
 
 
+def kernel_geom(g) -> bool:
+    """Geoms the kernel draws: the visible ones but the heightfield (the
+    terrain pass draws that)."""
+    return raster.visible(g) and g.gtype != HFIELD
+
+
 def flops_per_ray(model: Model) -> int:
-    """FP32 operations one ray costs for this model's visible geoms when
+    """FP32 operations one ray costs for this model's kernel geoms when
     every geom is tested (the kernel without culling)."""
     return FLOPS_RAY + FLOPS_SHADE + sum(
-        FLOPS_GEOM[g.gtype] for g in model.geoms if raster.visible(g))
+        FLOPS_GEOM[g.gtype] for g in model.geoms if kernel_geom(g))
 
 
 def bounding_radius(g) -> Optional[float]:
@@ -129,7 +143,7 @@ def ops_needed(model: Model, params: torch.Tensor, fovy: float, H: int,
     per_ray = FLOPS_RAY + FLOPS_SHADE
     total = 0
     for i, g in enumerate(model.geoms):
-        if not raster.visible(g):
+        if not kernel_geom(g):
             continue
         rb = bounding_radius(g)
         if rb is None:
@@ -184,7 +198,7 @@ def geom_table(model: Model, device):
         return got[1]
     ints, floats = [], []
     for i, g in enumerate(model.geoms):
-        if not raster.visible(g):
+        if not kernel_geom(g):
             continue
         if g.gtype not in FLOPS_GEOM:
             raise NotImplementedError(
@@ -247,15 +261,49 @@ def _render_packed_ref(model: Model, params: torch.Tensor, fovy: float,
 
 def render_batch_ref(model: Model, Rg, pg, app: Appearance, cam_pos, cam_R,
                      fovy: float, H: int, W: int, with_depth: bool = False,
-                     dtype=torch.float32):
+                     dtype=torch.float32, hfield=None):
     """Plain version of the kernel. Rg (E,G,3,3), pg (E,G,3), app with (E,
     ...) fields, cam_pos (E,3), cam_R (E,3,3). Returns (rgb (E,3,H,W) in
     [0,1], seg i32 (E,H,W)[, depth (E,H,W)]), computed in `dtype`
-    (float64: the exact-arithmetic reference of the checks)."""
-    rgb, seg, depth = _render_packed_ref(
+    (float64: the exact-arithmetic reference of the checks). `hfield`
+    (E, res, res): a heightfield model's terrains, drawn by
+    `terrain_pass`."""
+    out = _render_packed_ref(
         model, _pack_params(Rg, pg, app, cam_pos, cam_R, dtype), float(fovy),
         H, W)
+    if hfield is not None and model.hfield_geom >= 0:
+        out = terrain_pass(model, hfield, app, cam_pos.to(dtype),
+                           cam_R.to(dtype), fovy, H, W, *out)
+    rgb, seg, depth = out
     return (rgb, seg, depth) if with_depth else (rgb, seg)
+
+
+def terrain_pass(model: Model, hfield, app: Appearance, cam_pos, cam_R,
+                 fovy: float, H: int, W: int, rgb, seg, depth):
+    """(rgb, seg, depth) with the terrains hfield (E, res, res) drawn over
+    rgb (E,3,H,W), seg and depth (E,H,W) where the terrain's hit
+    (`raster.trace_hfield`) is closer than `depth`: there the headlight
+    shading of the terrain geom's colour, its geom index and the hit
+    distance. Plain PyTorch, whatever the device."""
+    E = cam_pos.shape[0]
+    comps = lambda x: (x[:, 0:1], x[:, 1:2], x[:, 2:3])
+    tan_half = float(np.tan(np.deg2rad(float(fovy)) / 2))
+    d = raster.camera_rays([cam_R[:, r, c][:, None] for r in range(3)
+                            for c in range(3)], tan_half, H, W,
+                           cam_pos.device)
+    t, n = raster.trace_hfield(model, hfield, comps(cam_pos), d)
+    hf_id = model.hfield_geom
+    seg_t = torch.full(t.shape, hf_id, dtype=torch.int32, device=t.device)
+    rgb_t, _, _ = raster.shade(
+        t, n, comps(app.geom_rgba[:, hf_id].to(t.dtype)), seg_t, d,
+        comps(app.skybox_rgb.to(t.dtype)), comps(app.skybox_rgb2.to(t.dtype)))
+    closer = t < depth.reshape(E, H * W)
+    rgb = torch.where(closer[:, None], torch.stack(rgb_t, 1).to(rgb.dtype),
+                      rgb.reshape(E, 3, H * W))
+    seg = torch.where(closer, seg_t, seg.reshape(E, H * W))
+    depth = torch.where(closer, t.to(depth.dtype), depth.reshape(E, H * W))
+    return (rgb.reshape(E, 3, H, W), seg.reshape(E, H, W),
+            depth.reshape(E, H, W))
 
 
 # ----------------------------------------------------------- the kernel
@@ -345,29 +393,39 @@ def _launch(model: Model, params: torch.Tensor, fovy: float, H: int, W: int,
 
 
 def render_batch(model: Model, Rg, pg, app: Appearance, cam_pos, cam_R,
-                 fovy: float, H: int, W: int, with_depth: bool = False):
+                 fovy: float, H: int, W: int, with_depth: bool = False,
+                 hfield=None):
     """Ray-cast a batch of scenes (signature and outputs of
     `pallas_raster.render_batch`; `with_depth` adds the hit distance).
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    A heightfield model's terrains `hfield` (E, res, res) are drawn over
+    the result by `terrain_pass`."""
     params = _pack_params(Rg, pg, app, cam_pos, cam_R)
+    terrain = hfield is not None and model.hfield_geom >= 0
     if params.device.type == "cuda":
-        return _launch(model, params, float(fovy), H, W, with_depth)
-    if params.device.type != "cpu":
+        out = _launch(model, params, float(fovy), H, W, with_depth or terrain)
+    elif params.device.type == "cpu":
+        out = _render_packed_ref(model, params, float(fovy), H, W)
+    else:
         raise ValueError(f"unsupported device {params.device}")
-    rgb, seg, depth = _render_packed_ref(model, params, float(fovy), H, W)
-    return (rgb, seg, depth) if with_depth else (rgb, seg)
+    if terrain:
+        out = terrain_pass(model, hfield, app, cam_pos, cam_R, fovy, H, W,
+                           *out)
+    return out if with_depth else out[:2]
 
 
 # ------------------------------------------------------- env entry point
 def render_frames(model: Model, Rg, pg, app: Appearance, cam_pos, cam_R,
                   fovy: float, H: int, W: int,
                   background: Optional[torch.Tensor] = None,
-                  bg_mask_materials: Tuple[str, ...] = ()):
+                  bg_mask_materials: Tuple[str, ...] = (), hfield=None):
     """Env frames: (rgb uint8 (E,3,H,W), depth f32 (E,H,W), seg i32
-    (E,H,W)); `background` (E,H,W,3) float [0,1] replaces sky pixels and
-    pixels of geoms whose material is in `bg_mask_materials`."""
+    (E,H,W)); the terrains `hfield` (E, res, res) of a heightfield model
+    drawn first, then `background` (E,H,W,3) float [0,1] in place of the
+    sky pixels and of pixels of geoms whose material is in
+    `bg_mask_materials`."""
     rgb, seg, depth = render_batch(model, Rg, pg, app, cam_pos, cam_R, fovy,
-                                   H, W, with_depth=True)
+                                   H, W, with_depth=True, hfield=hfield)
     rgb = composite(model, rgb, seg, background, bg_mask_materials)
     rgb8 = torch.clamp(rgb * 255.0, 0, 255).to(torch.uint8)
     return rgb8, depth, seg

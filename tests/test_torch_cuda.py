@@ -75,13 +75,16 @@ def test_culling_changes_no_output_bit(E, size, inside):
     ("cartpole", "swingup", "box"), ("finger", "turn_easy", "cylinder"),
     ("ball_in_cup", "catch", "sphere"), ("reacher", "easy", "sphere"),
     ("fish", "swim", "ellipsoid"), ("swimmer", "swimmer6", "ellipsoid"),
-    ("humanoid", "walk", "capsule")])
+    ("humanoid", "walk", "capsule"), ("quadruped", "escape", "ellipsoid"),
+    ("quadruped", "fetch", "sphere"), ("humanoid_CMU", "stand", "ellipsoid")])
 def test_kernel_matches_plain_version_on_domain_geoms(domain, task, gtype):
     """The box, cylinder, sphere, ellipsoid and capsule branches on the
     domains' posed scenes (fixed and trackcom cameras; the fish's and the
-    swimmer's ellipsoids, humanoid's 16 capsules and 3 spheres): culled
-    and unculled bit-identical, both within the plain version's bounds,
-    and the geom type drawn."""
+    swimmer's ellipsoids, humanoid's 16 capsules and 3 spheres; the
+    quadruped's ellipsoid torso, escape's scene without its terrain
+    geom, fetch's tilted walls and ball; humanoid_CMU's 50 geoms with its
+    ellipsoid hands): culled and unculled bit-identical, both within the
+    plain version's bounds, and the geom type drawn."""
     from sgqn_carla_tpu_torch.physics import model as pm
 
     dev = _cuda()
@@ -635,3 +638,52 @@ def test_kernel_thin_ellipsoids_hold_their_float64_evaluation(seed):
     x = raycast._render_packed_ref(m, params.double(), fovy, 84, 84)
     ok, worst = kc.compare_frames(k, x)
     assert ok and worst["max_level_diff"] <= 2, worst
+
+
+@pytest.mark.cuda
+def test_escape_terrain_composite_on_card_matches_cpu():
+    """quadruped escape's frames on the card — the kernel, then the plain
+    terrain pass over its output — against the CPU's (the plain version
+    and the same pass) on the same states: within the kernel's bounds,
+    the terrain drawn on most pixels, one kernel launch."""
+    from sgqn_carla_tpu_torch.envs.base import make_env
+
+    dev = _cuda()
+    envs = {d: make_env("quadruped", "escape", image_size=84, device=d)
+            for d in (dev, "cpu")}
+    g = torch.Generator().manual_seed(4)
+    st, _ = envs["cpu"].reset(g, 6)
+    for _ in range(2):
+        st, _ = envs["cpu"].step(st, torch.rand(6, 12, generator=g) * 2 - 1)
+    outs = {}
+    before = raycast.launches
+    for d, env in envs.items():
+        sc = env.scene(_to(st, d))
+        sc.pop("background")
+        sc.pop("bg_mask_materials")
+        outs[d] = [x.cpu() for x in raycast.render_batch(**sc,
+                                                         with_depth=True)]
+    assert raycast.launches == before + 1
+    _check(outs[dev], outs["cpu"])
+    hf_id = envs["cpu"].task.model.hfield_geom
+    share = (outs[dev][1] == hf_id).float().mean()
+    assert share > 0.3
+    assert abs(share - (outs["cpu"][1] == hf_id).float().mean()) < 1e-3
+
+
+def _to(state, dev):
+    """An env state with every tensor moved to `dev`."""
+    import dataclasses as dc
+
+    def mv(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, dict):
+            return {k: mv(v) for k, v in x.items()}
+        if dc.is_dataclass(x) and not isinstance(x, type):
+            return dc.replace(x, **{f.name: mv(getattr(x, f.name))
+                                    for f in dc.fields(x)})
+        return x
+
+    return mv(state)
+

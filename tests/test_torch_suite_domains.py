@@ -133,7 +133,21 @@ def test_point_mass_hard_gains_are_unit_and_not_parallel():
 
 
 def test_unported_suite_domains_raise():
-    for domain, task in (("quadruped", "walk"), ("humanoid_CMU", "stand"),
-                         ("composer_demo", "pendula")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tdomains.load(domain, task)
+    """composer_demo is still ROADMAP Queue 1; quadruped and humanoid_CMU
+    load (their ellipsoid pairs on the dense path), but an ellipsoid pair
+    under the scalar path's explicit penalty still raises (no ported
+    model sends one there)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        tdomains.load("composer_demo", "pendula")
+    for domain, task in (("quadruped", "walk"), ("humanoid_CMU", "stand")):
+        assert tdomains.load(domain, task).model.nl >= tengine._DENSE_NL
+    import dataclasses
+
+    from sgqn_carla_tpu_torch.physics.model import ELLIPSOID
+
+    m = tdomains.load("cheetah", "run").model
+    m = m.replace(geoms=[dataclasses.replace(g, gtype=ELLIPSOID, size=(
+        0.05, 0.05, 0.1)) if g.name == "bfoot" else g for g in m.geoms])
+    q = torch.zeros(1, m.nv)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        tengine.step(m, q, q, torch.zeros(1, m.nu))

@@ -254,35 +254,38 @@ def test_entry_points_pin_f32_matmuls(monkeypatch):
 
 @pytest.mark.parametrize("gtype", [BOX, ELLIPSOID])
 def test_box_and_ellipsoid_pairs_raise_on_the_dense_path(gtype):
-    """Humanoid's head turned into an ellipsoid: its pairs (against the
-    floor and the limbs) are ROADMAP Queue 1, in the penalty contacts and
-    in the implicit contact stage alike, as are heightfields. Turned into
-    a 0.09 m cube, its pairs run since the point–box category was ported:
-    corner rows against the floor, point–box rows against the limbs."""
+    """Humanoid's head turned into a 0.09 m cube or an ellipsoid: its
+    pairs run on the dense path since the point–box and the ellipsoid
+    categories were ported — corner rows or one
+    ellipsoid–plane row against the floor, point–box or point–ellipsoid
+    rows against the limbs — in the penalty contacts and in the implicit
+    contact stage alike. The same geom type under the scalar path's
+    explicit penalty (walker's torso) still raises, ROADMAP Queue 1."""
     import dataclasses
 
     tt = tdomains.load("humanoid", "walk")
-    size = np.full(3, 0.09) if gtype == BOX else None
-    geoms = [dataclasses.replace(g, gtype=gtype, size=(
-        g.size if size is None else size)) if g.name == "head" else g
-        for g in tt.model.geoms]
+    size = np.full(3, 0.09) if gtype == BOX else (0.09, 0.07, 0.11)
+    geoms = [dataclasses.replace(g, gtype=gtype, size=size)
+             if g.name == "head" else g for g in tt.model.geoms]
     m = tt.model.replace(geoms=geoms)
     q = torch.zeros(1, m.nv)
+    prog = dense.collision_program(m, "cpu")
+    base = dense.collision_program(tt.model, "cpu")
     if gtype == BOX:
-        prog = dense.collision_program(m, "cpu")
-        base = dense.collision_program(tt.model, "cpu")
         assert prog.npb > 0 and prog.npp == base.npp + 7  # 8 corners, not 1
-        out = tengine.step(m, q, q, torch.zeros(1, m.nu))
-        assert torch.isfinite(out.qpos).all()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dense.hfield_wrenches(m)
-        return
+    else:
+        assert (prog.nep, prog.npp) == (1, base.npp - 1)
+        # the head's 16 pairs with the limbs: 1 sample a sphere, 5 a capsule
+        assert base.nss - prog.nss == 16 and prog.npe == 72
+    out = tengine.step(m, q, q, torch.zeros(1, m.nu))
+    assert torch.isfinite(out.qpos).all()
+    v, pf, lam, dq = dense.implicit_contact_stage(
+        m.replace(implicit_contacts=True), q, q, m.timestep)
+    assert lam.shape == (1, dense.warm_size(m), 3)
+    assert torch.isfinite(v).all() and torch.isfinite(dq).all()
+    wt = tdomains.load("walker", "walk").model
+    wm = wt.replace(geoms=[dataclasses.replace(g, gtype=gtype, size=size)
+                           if g.name == "torso" else g for g in wt.geoms])
+    wq = torch.zeros(1, wm.nv)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.step(m, q, q, torch.zeros(1, m.nu))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense.collision_program(m, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense.implicit_contact_stage(m.replace(implicit_contacts=True), q, q,
-                                     m.timestep)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense.hfield_wrenches(m)
+        tengine.step(wm, wq, wq, torch.zeros(1, wm.nu))

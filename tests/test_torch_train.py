@@ -225,12 +225,12 @@ def test_attribution_images_match_jax_grids_and_names(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"domain_name": "humanoid_CMU", "task_name": "stand"},
+    ({"domain_name": "composer_demo", "task_name": "pendula"},
      "Remaining physics"),
     ({"replay_spill": "host"}, "Host-spill"),
     ({"mesh_data_axis": 2}, "Multi-GPU"),
-    ({"domain_name": "quadruped", "task_name": "walk"},
-     "Remaining physics"),
+    ({"domain_name": "composer_demo", "task_name": "pendula",
+      "eval_mode": "video_hard"}, "Remaining physics"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
     cfg = Config(**{**TINY, **kw}, device="cpu",
