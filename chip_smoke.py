@@ -188,11 +188,34 @@ Phases, each printing one JSON line:
               --algorithm sgsac at full width and 8 envs, as
               cartpole_trainer; resume/S2 restores the terrains with
               every other leaf bit for bit
- 14. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
+ 14. composer_domain  composer_demo's pendula (the composer layer: two
+              entities, nl 2) at 16 envs and 84 px as dmcgb_domains
+              (reset and 2 steps, the split, eager ops, idle share, the
+              kernel on the posed scene), and the card against the CPU
+              after the same start and 4 control steps
+     composer_trainer  train --domain_name composer_demo --task_name
+              pendula --algorithm sgsac at full width and 8 envs, as
+              cartpole_trainer
+     mjcf_physics  the MJCF compiler and `Physics` on three inline
+              models (tests/mjcf_models.py: the box cart, the
+              defaults/childclass model, the welded free root): step(10)
+              on the card against the CPU, ms and eager ops a substep,
+              render through the kernel against the plain version; walker
+              with a box and with an ellipsoid torso in the floor, 10
+              substeps under the explicit penalty, card against CPU
+     spill_trainer  walker SAC at full width with --replay_spill host (a
+              3-episode device ring behind a 10-episode host ring):
+              episodes spilled and slots refreshed, seconds per exchange,
+              bytes each way, finite losses
+     hostio   the host-I/O library built from native/hostio.cpp, 8
+              448-px frames through png_write_batch read back equal, its
+              write time beside the pure-Python writer's
+ 15. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
      offline_eval, algorithms, pad_trainer, pad_offline_eval,
      external_data, dmcgb_domains, cartpole_trainer,
      distracting_cs_dmcgb, suite_domains, humanoid_trainer,
-     grasp_domains, hopper_trainer, legged_domains, escape_trainer; the
+     grasp_domains, hopper_trainer, legged_domains, escape_trainer,
+     composer_domain, composer_trainer, mjcf_physics, spill_trainer; the
      kernel's times on each domain's scene), then
      the card's nvidia-smi line, then {"ok": true, "device": {...}} as
      the last line. The work dir build/chip_smoke_logs/ is emptied first.
@@ -2016,6 +2039,288 @@ def escape_trainer_phase(cfg, smi, raycast):
                                 check_restored=terrains)
 
 
+# ---- composer_demo, the MJCF compiler and `Physics`, host spill, host I/O
+def composer_domain_phase(smi, raycast, kc):
+    """composer_demo's pendula (two entities, nl 2, no contacts) at 16
+    envs and 84 px through `domain_row` (3 random steps: the first warms
+    the card up); then the card against the CPU
+    from the same start (drawn on the CPU) under the same 4 controls:
+    |Δqpos| ≤ 1e-5, |Δqvel| ≤ 1e-4. Returns (ok, row, kernel launches)."""
+    import torch
+
+    from sgqn_carla_tpu_torch.physics import domains
+    from sgqn_carla_tpu_torch.physics.task import PhysState
+
+    start = time.time()
+    ok, row, launches = domain_row("composer_demo", "pendula", raycast, kc,
+                                   steps=3)
+    task = domains.load("composer_demo", "pendula")
+    g = torch.Generator().manual_seed(5)
+    st = task.init(g, 16, "cpu")
+    ctrl = torch.rand((4, 16, task.model.nu), generator=g) * 2 - 1
+    out = {}
+    for dev in ("cpu", DEV):
+        s = PhysState(st.qpos.to(dev), st.qvel.to(dev),
+                      st.contact_force.to(dev))
+        for k in range(4):
+            s = task.step(s, ctrl[k].to(dev))
+        out[dev] = (s.qpos.cpu(), s.qvel.cpu())
+    dq = float((out[DEV][0] - out["cpu"][0]).abs().max())
+    dv = float((out[DEV][1] - out["cpu"][1]).abs().max())
+    ok = ok and dq <= 1e-5 and dv <= 1e-4
+    row.update({"card_vs_cpu_4_control_steps": {
+        "max_abs_dqpos": dq, "max_abs_dqvel": dv, "bound_qpos": 1e-5,
+        "bound_qvel": 1e-4}})
+    emit({"phase": "composer_domain", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, **row})
+    return ok, row, launches
+
+
+def composer_trainer_phase(cfg, smi, raycast):
+    """`train --domain_name composer_demo --task_name pendula --algorithm
+    sgsac` at full width and 8 envs, as cartpole_trainer: video_hard at
+    S2, resume/S2 bit for bit, a resume to S3."""
+    return domain_trainer_phase(cfg, smi, raycast, "composer_trainer",
+                                "composer_demo", "pendula")
+
+
+def _torso_walker(gtype: int):
+    """Walker with its torso a box or an ellipsoid of half-extents (0.07,
+    0.05, 0.3), its pair with the floor the only pair (as in
+    tests/test_torch_scalar_contacts.py)."""
+    import dataclasses
+
+    import numpy as np
+
+    from sgqn_carla_tpu_torch.physics import domains
+
+    m = domains.load("walker", "walk").model
+    geoms = [dataclasses.replace(g, gtype=gtype, size=np.array(
+        [0.07, 0.05, 0.3])) if g.name == "torso" else g for g in m.geoms]
+    torso = next(i for i, g in enumerate(geoms) if g.name == "torso")
+    return m.replace(geoms=geoms, contact_pairs=np.array([[0, torso]],
+                                                         np.int32))
+
+
+def mjcf_physics_phase(smi, raycast, kc):
+    """The MJCF compiler and `Physics` on the card. The box cart of
+    tests/test_physics_api.py (a box–plane pair on the scalar path), the
+    defaults/childclass model (falling, its legs driven) and the welded
+    free-rooted model (tests/mjcf_models.py), each compiled by
+    `mjcf.load_model_string`: `Physics(device="cuda").step(10)` against
+    the same steps on the CPU after 10 warm-up substeps on both (within
+    1e-5, and 1e-5 relative on speeds above 1), the ms and eager ops of a substep on the card, and
+    `render(84, 84)` through the kernel (one launch) against the plain
+    version on the CPU at compare_frames' bounds. Then walker with a box
+    and with an ellipsoid torso, 16 envs pressed into the floor: 10
+    substeps under the explicit penalty on the card against the CPU
+    (qpos 1e-4, qvel 1e-3), ms and eager ops a substep. Returns (ok,
+    rows, kernel launches of the renders)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from mjcf_models import CART, DEFAULTS, WELD
+
+    from sgqn_carla_tpu_torch.physics import engine, mjcf
+    from sgqn_carla_tpu_torch.physics.api import Physics
+    from sgqn_carla_tpu_torch.physics.model import BOX, ELLIPSOID
+    from sgqn_carla_tpu_torch.render.cameras import camera_pose
+    from sgqn_carla_tpu_torch.render.raster import default_appearance
+
+    start = time.time()
+    ok, rows, launches = True, {}, 0
+    for name, xml in (("cart", CART), ("defaults", DEFAULTS),
+                      ("weld", WELD)):
+        t0 = time.time()
+        model = mjcf.load_model_string(xml)
+        compile_s = time.time() - t0
+        sides = [Physics.from_model(model, device=d) for d in (DEV, "cpu")]
+        u = np.full(model.nu, 0.5, np.float32)
+        for p in sides:
+            p.set_state(np.linspace(-0.1, 0.1, model.nl), np.zeros(model.nl))
+            p.set_control(u)
+            p.step(10)  # the card's first substeps warm it up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sides[0].step(10)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 100
+        sides[1].step(10)
+        dq = np.abs(sides[0].qpos - sides[1].qpos)
+        dv = np.abs(sides[0].qvel - sides[1].qvel)
+        bound = 1e-5 * np.maximum(1.0, np.abs(sides[1].qvel))
+        agree = bool((dq <= 1e-5).all() and (dv <= bound).all())
+        ops = _count_ops(lambda: sides[0].step(1))
+        raycast.launches = 0
+        frame = sides[0].render(84, 84)
+        torch.cuda.synchronize()
+        n = raycast.launches
+        launches += n
+        frames = []
+        for p in sides:
+            q = torch.as_tensor(sides[0].qpos, device=p.device)[None]
+            kin = engine.forward_kinematics(model, q, torch.zeros_like(q))
+            Rg, pg = engine.geom_world(model, kin)
+            cam = camera_pose(model, 0, kin)
+            rgb, _, seg = raycast.render_frames(
+                model, Rg, pg, default_appearance(model, 1, p.device),
+                cam.pos, cam.R, model.cameras[0].fovy, 84, 84)
+            frames.append((rgb.float().cpu() / 255.0, seg.cpu()))
+        same_frame = bool(np.array_equal(
+            frames[0][0][0].permute(1, 2, 0).numpy(),
+            frame.astype(np.float32) / 255.0))
+        good, cmp = kc.compare_frames(*frames)
+        row_ok = agree and good and same_frame and n == 1 and bool(
+            np.isfinite(sides[0].qpos).all())
+        ok &= row_ok
+        rows[name] = {
+            "ok": row_ok, "nl": model.nl, "nu": model.nu,
+            "contact_pairs": len(model.contact_pairs),
+            "compile_s": compile_s, "ms_per_substep": ms,
+            "eager_ops_per_substep": ops,
+            "max_abs_dqpos": float(dq.max()), "max_abs_dqvel": float(dv.max()),
+            "render_launches": n, "render_is_kernel_frame": same_frame,
+            "frame_vs_plain": cmp}
+    for label, gtype in (("walker_box_torso", BOX),
+                         ("walker_ellipsoid_torso", ELLIPSOID)):
+        m = _torso_walker(gtype)
+        rs = np.random.RandomState(3)
+        q = np.zeros((16, m.nv), np.float32)
+        th = rs.uniform(-1.45, 1.45, 16)
+        c, s = 0.3 * np.abs(np.cos(th)), 0.07 * np.abs(np.sin(th))
+        reach = c + s if gtype == BOX else np.sqrt(c * c + s * s)
+        q[:, 0] = reach - rs.uniform(0.005, 0.02, 16) - 1.3
+        q[:, 2] = th
+        for j in range(3, m.nv):
+            q[:, j] = rs.uniform(*m.jnt_range[j], 16)
+        qd = rs.uniform(-0.5, 0.5, (16, m.nv)).astype(np.float32)
+        ctrl = rs.uniform(-1, 1, (16, m.nu)).astype(np.float32)
+        out = {}
+        for dev in (DEV, "cpu"):
+            a, b, u = (torch.as_tensor(x, device=dev) for x in (q, qd, ctrl))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            o = engine.n_steps(m, a, b, u, 10)
+            torch.cuda.synchronize()
+            out[dev] = (o, (time.time() - t0) * 100)
+        (oc, ms), (oh, _) = out[DEV], out["cpu"]
+        dq = float((oc.qpos.cpu() - oh.qpos).abs().max())
+        dv = float((oc.qvel.cpu() - oh.qvel).abs().max())
+        a, b, u = (torch.as_tensor(x, device=DEV) for x in (q, qd, ctrl))
+        ops = _count_ops(lambda: engine.step(m, a, b, u))
+        row_ok = dq <= 1e-4 and dv <= 1e-3 and bool(
+            (oh.contact_force > 0).any())
+        ok &= row_ok
+        rows[label] = {"ok": row_ok, "num_envs": 16, "ms_per_substep": ms,
+                       "eager_ops_per_substep": ops, "max_abs_dqpos": dq,
+                       "max_abs_dqvel": dv, "bounds": [1e-4, 1e-3],
+                       "pair_force_max": float(oh.contact_force.max())}
+    emit({"phase": "mjcf_physics", "ok": ok, "card": smi,
+          "phase_s": time.time() - start, "models": rows})
+    return ok, rows, launches
+
+
+def spill_trainer_phase(cfg, smi, run_training, raycast):
+    """run_training walker-walk SAC at full width and 16 envs with
+    --replay_spill host: episodes of 2 wrapper steps to step 12 (warm-up
+    to 4), a device ring of 3 episodes (replay_device_capacity 96) behind
+    a host ring of 10 (replay_capacity 320), refresh 2. Every chunk is
+    spilled, refreshes happen, the losses are finite; seconds per
+    chunk-boundary exchange and bytes each way. Returns (ok, kernel
+    launches)."""
+    start = time.time()
+    run_cfg = cfg.replace(
+        episode_length=8, init_steps=4, train_steps=12, replay_spill="host",
+        replay_capacity=320, replay_device_capacity=96,
+        replay_spill_refresh=2, log_dir=os.path.join(cfg.log_dir, "spill"))
+    raycast.launches = 0
+    out = run_training(run_cfg)
+    launches = raycast.launches
+    sp, tm, fm = out["spill"], out["timing"], out["final_metrics"]
+    buf = out["replay"][0]
+    ok = (sp is not None and sp.n == 6 and sp.refreshed >= 1
+          and buf.num_episodes == 3 and sp.num_host_episodes == 10
+          and "critic_loss" in fm and all(_finite(v) for v in fm.values())
+          and launches > 0)
+    emit({"phase": "spill_trainer", "ok": ok, "card": smi,
+          "phase_s": time.time() - start,
+          "config": {"domain": "walker_walk", "algorithm": "sac",
+                     "num_envs": run_cfg.num_envs, "episode_length": 8,
+                     "train_steps": 12, "replay_capacity": 320,
+                     "replay_device_capacity": 96, "refresh": 2},
+          "device_episodes": buf.num_episodes,
+          "host_episodes": sp.num_host_episodes if sp else None,
+          "episodes_spilled": sp.n if sp else 0,
+          "slots_refreshed": sp.refreshed if sp else 0,
+          "exchange_s_per_chunk": tm["spill_s"] / max(sp.n, 1) if sp else None,
+          "bytes_down": sp.bytes_down if sp else 0,
+          "bytes_up": sp.bytes_up if sp else 0,
+          "kernel_launches": launches, "final_metrics": fm})
+    return ok, launches
+
+
+def _read_png(path: str):
+    """An RGB8 PNG with filter 0 rows (the host-I/O encoder's) as an
+    (H, W, 3) array; None for anything else."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = hdr[0], hdr[1]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 3 * w + 1)
+    if hdr[2:4] != (8, 2) or rows[:, 0].any():
+        return None
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def hostio_phase(smi):
+    """The host-I/O library built from native/hostio.cpp (g++) into
+    build/hostio/, and 8 448-px frames (the eval recorder's) written by
+    `png_write_batch` and read back equal; its write time beside the
+    pure-Python writer's."""
+    import numpy as np
+
+    from sgqn_carla_tpu_torch.agents.visualize import _write_png
+    from sgqn_carla_tpu_torch.core import native
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke_logs", "hostio")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.time()
+    lib = native.build()
+    build_s = time.time() - t0
+    frames = np.random.RandomState(0).randint(
+        0, 256, (8, 448, 448, 3)).astype(np.uint8)
+    paths = [os.path.join(out_dir, f"f{i}.png") for i in range(8)]
+    t0 = time.time()
+    wrote = native.png_write_batch(frames, paths)
+    write_s = time.time() - t0
+    equal = wrote and all(np.array_equal(_read_png(p), f)
+                          for p, f in zip(paths, frames))
+    t0 = time.time()
+    for i, f in enumerate(frames):
+        _write_png(os.path.join(out_dir, f"py{i}.png"), f)
+    python_s = time.time() - t0
+    emit({"phase": "hostio", "ok": equal, "card": smi,
+          "library": os.path.relpath(lib, REPO), "build_s": build_s,
+          "frames": [8, 448, 448, 3], "png_write_batch_s": write_s,
+          "python_writer_s": python_s, "read_back_equal": equal})
+    return equal
+
+
 def main():
     import torch
 
@@ -2251,7 +2556,24 @@ def main():
     if not ok_es:
         return 1
 
-    # ---- 14. kernels line, card line, result
+    # ---- 14. composer_demo, the MJCF compiler and `Physics`, host spill,
+    # host I/O
+    ok_co, co_row, co_launches = composer_domain_phase(smi, raycast, kc)
+    if not ok_co:
+        return 1
+    ok_ct, ct_launches = composer_trainer_phase(cfg, smi, raycast)
+    if not ok_ct:
+        return 1
+    ok_mj, mj_rows, mj_launches = mjcf_physics_phase(smi, raycast, kc)
+    if not ok_mj:
+        return 1
+    ok_sp, sp_launches = spill_trainer_phase(cfg, smi, run_training, raycast)
+    if not ok_sp:
+        return 1
+    if not hostio_phase(smi):
+        return 1
+
+    # ---- 15. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -2275,11 +2597,17 @@ def main():
                              "grasp_domains": gr_launches,
                              "hopper_trainer": ho_launches,
                              "legged_domains": lg_launches,
-                             "escape_trainer": es_launches},
+                             "escape_trainer": es_launches,
+                             "composer_domain": co_launches,
+                             "composer_trainer": ct_launches,
+                             "mjcf_physics": mj_launches,
+                             "spill_trainer": sp_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [
             d["kernel"] for d in list(dm_rows.values())
             + list(su_rows.values()) + list(gr_rows.values())
-            + list(lg_rows.values())]),
+            + list(lg_rows.values()) + [co_row]] + [
+                r["frame_vs_plain"] for r in mj_rows.values()
+                if "frame_vs_plain" in r]),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
         "device_ms_unculled": main_row["kernel_device_ms_unculled"],
@@ -2300,8 +2628,8 @@ def main():
                 "kernel_device_ms_unculled",
                 "plain_ms", "bound_ms", "bound_by", "share_of_bound",
                 "identical", "seg_mismatch_max")}
-            for name, d in {**dm_rows, **su_rows, **gr_rows,
-                            **lg_rows}.items()},
+            for name, d in {**dm_rows, **su_rows, **gr_rows, **lg_rows,
+                            "composer_demo_pendula": co_row}.items()},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,10 @@ Counterpart of `sgqn_carla_tpu/agents/visualize.py`: per-frame observation
 grids, guided-backprop attribution heatmaps, predicted-attribution
 sigmoids, and observations masked at quantiles {0.9, 0.95, 0.975, 0.995,
 0.999}, written as PNG files under ``<work_dir>/output/<prefix>/`` with
-the same names. The grids are numpy on the host; the PNG writer is the
-port's own zlib copy, so no native encoder is needed.
+the same names. The grids are numpy on the host, padded to one size and
+written by the host-I/O library's batched PNG encoder
+(`core/native.py`), or by the pure-Python writer `_write_png` where that
+library cannot be built, as in JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from sgqn_carla_tpu_torch.core import native
 from sgqn_carla_tpu_torch.ops.guided_backprop import compute_attribution_mask
 
 QUANTILES = (0.9, 0.95, 0.975, 0.995, 0.999)
@@ -102,6 +105,14 @@ def save_attribution_images(agent, astate, obs, action, out_dir: str,
     for q in QUANTILES:
         mask = compute_attribution_mask(grad_t, q).cpu().numpy()
         images[f"attrib_q{q}"] = _obs_grid(obs_np * mask)
-    for name, img in images.items():
-        _write_png(os.path.join(out_dir, prefix, f"{name}_{step}.png"), img)
+    paths = [os.path.join(out_dir, prefix, f"{name}_{step}.png")
+             for name in images]
+    frames = list(images.values())
+    padded = np.zeros((len(frames), max(f.shape[0] for f in frames),
+                       max(f.shape[1] for f in frames), 3), np.uint8)
+    for i, fr in enumerate(frames):
+        padded[i, :fr.shape[0], :fr.shape[1]] = fr
+    if not native.png_write_batch(padded, paths):
+        for p, fr in zip(paths, padded):
+            _write_png(p, fr)
     return sorted(images)

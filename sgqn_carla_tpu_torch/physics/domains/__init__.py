@@ -21,10 +21,6 @@ def load(domain_name: str, task_name: str, **kwargs):
     _ensure_imported()
     key = (domain_name, task_name)
     if key not in _REGISTRY:
-        if domain_name not in {d for d, _ in _REGISTRY}:
-            raise NotImplementedError(
-                f"domain {domain_name!r} is not ported yet (ROADMAP Queue "
-                "1, 'Remaining physics')")
         raise ValueError(
             f"unknown domain/task {key}; available: {sorted(_REGISTRY)}"
         )
@@ -43,12 +39,11 @@ def _ensure_imported():
     global _IMPORTED
     if _IMPORTED:
         return
-    # the DMCGB domains and the suite domains; composer_demo is ROADMAP
-    # Queue 1, "Remaining physics"
     from sgqn_carla_tpu_torch.physics.domains import (  # noqa: F401
         ball_in_cup,
         cartpole,
         cheetah,
+        composed,
         extra,
         finger,
         fish,

@@ -29,9 +29,11 @@ threads through the substeps.
 
 Heightfield contacts (quadruped escape's terrain) run on the dense path
 only, as in the JAX engine: `step`, `n_steps` and `n_steps_warm` take the
-terrains as `hfield=`. Box and ellipsoid pairs under the scalar path's
-explicit penalty raise `NotImplementedError` naming the ROADMAP item that
-ports them (no ported model sends one there).
+terrains as `hfield=`. Under the scalar path's explicit penalty a box
+against a plane gives its 8 corners, an ellipsoid its support point, and
+a sphere, capsule, cylinder or box against a box or an ellipsoid its
+sample points clamped to that geom (`_contacts_for_pair`), as in the JAX
+engine; an ellipsoid against a box or an ellipsoid raises there too.
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ from sgqn_carla_tpu_torch.physics.model import (
     BOX, CAPSULE, CYLINDER, ELLIPSOID, HINGE, PLANE, SPHERE, Model,
 )
 
-_ROADMAP_PHYSICS = "ROADMAP Queue 1, 'Remaining physics'"
 # the JAX engine dispatches nl >= 12 to its dense path (dense.DENSE_NL)
 _DENSE_NL = 12
 
@@ -182,10 +183,8 @@ _CHECKED: dict = {}
 def check_supported(model: Model):
     """Raise for the model features the scalar path does not carry:
     heightfields (the JAX engine's scalar path refuses them too), and
-    ellipsoid or box pairs under its explicit penalty (ROADMAP; no ported
-    model sends one there: they run on the dense path's narrow phase,
-    nl ≥ 12, and in the implicit contact stage). Implicit contacts need
-    the Euler integrator, as in the JAX engine. Checked once per model."""
+    implicit contacts under RK4 (they need the Euler integrator, as in the
+    JAX engine). Checked once per model."""
     got = _CHECKED.get(id(model))
     if got is not None and got is model:
         return
@@ -195,14 +194,6 @@ def check_supported(model: Model):
         raise NotImplementedError(
             "heightfield contacts on the scalar path (nl < "
             f"{_DENSE_NL}): the JAX engine runs them on the dense path only")
-    batched = model.implicit_contacts or model.nl >= _DENSE_NL
-    for gi, gj in model.contact_pairs:
-        types = {model.geoms[int(gi)].gtype, model.geoms[int(gj)].gtype}
-        if types & {ELLIPSOID, BOX} and not batched:
-            raise NotImplementedError(
-                f"box or ellipsoid contact pair (geom types {sorted(types)})"
-                " under the scalar path's explicit penalty: "
-                + _ROADMAP_PHYSICS)
     _CHECKED[id(model)] = model
 
 
@@ -554,27 +545,120 @@ def _closest_segment_points(a0, a1, b0, b1):
 _ROUND = (SPHERE, CAPSULE, CYLINDER)
 
 
+def _point_box_soa(pt, qb, pb, size, like):
+    """Point against an oriented box: (n, dist), `n` the world unit normal
+    from the box surface toward the point, `dist` signed (negative
+    inside). The outside (clamp) and inside (nearest face) branches are
+    both computed and selected per env, as in the JAX engine."""
+    ex, ey, ez = v3.q_columns(qb)
+    rel = v3.sub(pt, pb)
+    q = tuple(v3.full(c, like) for c in (v3.dot(rel, ex), v3.dot(rel, ey),
+                                         v3.dot(rel, ez)))
+    s = [float(size[k]) for k in range(3)]
+    delta = tuple(q[k] - torch.clamp(q[k], -s[k], s[k]) for k in range(3))
+    d2 = delta[0] ** 2 + delta[1] ** 2 + delta[2] ** 2
+    outside = d2 > 1e-12
+    dist_out = torch.sqrt(torch.clamp(d2, min=1e-12))
+    n_out = tuple(delta[k] / dist_out for k in range(3))
+    # inside: the nearest face, along the axis of least clearance
+    fd = tuple(s[k] - torch.abs(q[k]) for k in range(3))
+    m01 = fd[0] <= fd[1]
+    m = torch.where(m01, fd[0], fd[1])
+    k_best = torch.where(fd[2] < m, 2, m01.logical_not().to(torch.int64))
+    dist_in = -torch.minimum(m, fd[2])
+    n_in = tuple(torch.where(
+        k_best == k,
+        torch.sign(torch.where(torch.abs(q[k]) < 1e-9, 1.0, q[k])), 0.0)
+        for k in range(3))
+    dist = torch.where(outside, dist_out, dist_in)
+    n_local = tuple(torch.where(outside, n_out[k], n_in[k]) for k in range(3))
+    n_world = v3.add(v3.add(v3.scale(ex, n_local[0]),
+                            v3.scale(ey, n_local[1])),
+                     v3.scale(ez, n_local[2]))
+    return n_world, dist
+
+
+def _box_corner(basis, p, size, sx, sy, sz):
+    ex, ey, ez = basis
+    return v3.add(p, v3.add(
+        v3.scale(ex, sx * float(size[0])),
+        v3.add(v3.scale(ey, sy * float(size[1])),
+               v3.scale(ez, sz * float(size[2])))))
+
+
+def _box_sample_points(g, qg, pg_):
+    """World sample points of a geom for the point–box and point–ellipsoid
+    narrow phase, and their radius: a sphere's centre (1), a capsule's or
+    cylinder's axis at t = 0, ¼, ½, ¾, 1 (5), a box's corners (8, radius
+    0), in the JAX engine's order."""
+    if g.gtype == SPHERE:
+        return [pg_], float(g.size[0])
+    if g.gtype in (CAPSULE, CYLINDER):
+        a, b = _capsule_segment_soa(g, qg, pg_)
+        return [v3.add(v3.scale(a, 1 - t), v3.scale(b, t))
+                for t in (0.0, 0.25, 0.5, 0.75, 1.0)], float(g.size[0])
+    if g.gtype == BOX:
+        basis = v3.q_columns(qg)
+        return [_box_corner(basis, pg_, g.size, sx, sy, sz)
+                for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)], 0.0
+    raise NotImplementedError(f"box sampling for geom type {g.gtype}")
+
+
 def _contacts_for_pair(model, kin, gi, gj, gw):
     """Contacts of one static geom pair: a list of (point, n, depth, mu, la,
-    lb), n from geom b toward geom a. Carried: plane vs sphere/capsule/
-    cylinder, and sphere/capsule/cylinder vs each other (a cylinder is its
-    axis segment with its radius, as in the JAX engine); pairs with a box
-    or an ellipsoid raise."""
+    lb), n from geom b toward geom a; every potential contact is emitted
+    (depth ≤ 0 gives no force). The JAX engine's categories in its order:
+    plane vs sphere, capsule or cylinder (its ends), box (8 corners) or
+    ellipsoid (its support point); round geoms against each other (closest
+    segment points; a cylinder is its axis segment with its radius);
+    sphere, capsule, cylinder or box against a box (its sample points
+    clamped to the box; box–box both ways); and those against an
+    ellipsoid (scaled-space distance). An ellipsoid against a box or an
+    ellipsoid raises, as it does in the JAX engine."""
     a, b = model.geoms[gi], model.geoms[gj]
     if a.gtype == PLANE:  # plane second → normal points at the body
         a, b, gi, gj = b, a, gj, gi
     (qa, pa), (qb, pb) = gw[gi], gw[gj]
     mu = max(a.friction, b.friction)
+    like = kin.like
     out = []
-    if b.gtype == PLANE and a.gtype in _ROUND:
+    if b.gtype == PLANE:
         n = v3.q_columns(qb)[2]
         d0 = v3.dot(n, pb)
-        r = float(a.size[0])
-        ends = ([pa] if a.gtype == SPHERE
-                else list(_capsule_segment_soa(a, qa, pa)))
-        for e in ends:
-            dist = v3.sub2(v3.dot(n, e), d0)
-            out.append((v3.sub(e, v3.scale(n, dist)), n, v3.sub2(r, dist), mu))
+        if a.gtype in _ROUND:
+            r = float(a.size[0])
+            ends = ([pa] if a.gtype == SPHERE
+                    else list(_capsule_segment_soa(a, qa, pa)))
+            for e in ends:
+                dist = v3.sub2(v3.dot(n, e), d0)
+                out.append((v3.sub(e, v3.scale(n, dist)), n,
+                            v3.sub2(r, dist), mu))
+        elif a.gtype == BOX:
+            basis = v3.q_columns(qa)
+            for sx in (-1, 1):
+                for sy in (-1, 1):
+                    for sz in (-1, 1):
+                        corner = _box_corner(basis, pa, a.size, sx, sy, sz)
+                        dist = v3.sub2(v3.dot(n, corner), d0)
+                        out.append((v3.sub(corner, v3.scale(n, dist)), n,
+                                    -v3.full(dist, like), mu))
+        elif a.gtype == ELLIPSOID:
+            # the support point along −n: x = c − R·(S²·Rᵀn)/√(nᵀ·R·S²·Rᵀ·n)
+            ex, ey, ez = v3.q_columns(qa)
+            s2 = [float(x) * float(x) for x in a.size]
+            nl = (v3.dot(n, ex), v3.dot(n, ey), v3.dot(n, ez))
+            w = tuple(v3.mul(s2[k], nl[k]) for k in range(3))
+            denom = v3.sqrt(v3.add2(v3.add2(v3.add2(
+                v3.mul(nl[0], w[0]), v3.mul(nl[1], w[1])),
+                v3.mul(nl[2], w[2])), 1e-12))
+            off = v3.add(v3.add(v3.scale(ex, w[0]), v3.scale(ey, w[1])),
+                         v3.scale(ez, w[2]))
+            x = v3.sub(pa, v3.scale(off, 1.0 / denom))
+            dist = v3.sub2(v3.dot(n, x), d0)
+            out.append((v3.sub(x, v3.scale(n, dist)), n,
+                        -v3.full(dist, like), mu))
+        else:
+            raise NotImplementedError(f"plane vs geom type {a.gtype}")
     elif a.gtype in _ROUND and b.gtype in _ROUND:
         def seg(g, q, p):
             return (p, p) if g.gtype == SPHERE else _capsule_segment_soa(
@@ -588,10 +672,48 @@ def _contacts_for_pair(model, kin, gi, gj, gw):
         depth = (ra + rb) - dist
         point = v3.add(cb, v3.scale(n, rb - depth / 2))
         out.append((point, n, depth, mu))
+    elif BOX in (a.gtype, b.gtype):
+        # the point geom's samples clamped to the box (corner–face
+        # manifolds; edge–edge configurations are not resolved)
+        if a.gtype == BOX and b.gtype != BOX:
+            # the normal must point from b toward a: flip the roles
+            a, b, gi, gj = b, a, gj, gi
+            (qa, pa), (qb, pb) = gw[gi], gw[gj]
+        pts, r = _box_sample_points(a, qa, pa)
+        for pt in pts:
+            n, dist = _point_box_soa(pt, qb, pb, b.size, like)
+            out.append((v3.sub(pt, v3.scale(n, dist)), n, r - dist, mu))
+        if a.gtype == BOX:  # box–box: b's corners clamped to a as well
+            pts2, _ = _box_sample_points(b, qb, pb)
+            for pt in pts2:
+                n, dist = _point_box_soa(pt, qa, pa, a.size, like)
+                # n points from a toward b here: flip it to b → a
+                out.append((v3.sub(pt, v3.scale(n, dist)), v3.scale(n, -1.0),
+                            -dist, mu))
+    elif ELLIPSOID in (a.gtype, b.gtype):
+        # the point geom's samples against the ellipsoid (scaled-space
+        # distance, exact on the axes)
+        if a.gtype == ELLIPSOID:
+            a, b, gi, gj = b, a, gj, gi
+            (qa, pa), (qb, pb) = gw[gi], gw[gj]
+        pts, r = _box_sample_points(a, qa, pa)
+        ex, ey, ez = v3.q_columns(qb)
+        s = [float(b.size[k]) + 1e-9 for k in range(3)]
+        for pt in pts:
+            rel = v3.sub(pt, pb)
+            q = tuple(v3.full(c, like) for c in (
+                v3.dot(rel, ex), v3.dot(rel, ey), v3.dot(rel, ez)))
+            u2 = (q[0] / s[0]) ** 2 + (q[1] / s[1]) ** 2 + (q[2] / s[2]) ** 2
+            nu = torch.sqrt(u2 + 1e-12)
+            qn = torch.sqrt(q[0] ** 2 + q[1] ** 2 + q[2] ** 2 + 1e-12)
+            dist = (nu - 1.0) * qn / nu
+            nl, _ = v3.normalize(tuple(q[k] / s[k] ** 2 for k in range(3)))
+            n = v3.add(v3.add(v3.scale(ex, nl[0]), v3.scale(ey, nl[1])),
+                       v3.scale(ez, nl[2]))
+            out.append((v3.sub(pt, v3.scale(n, dist)), n, r - dist, mu))
     else:
         raise NotImplementedError(
-            f"contact pair geom types {a.gtype} vs {b.gtype}: "
-            + _ROADMAP_PHYSICS)
+            f"contact pair {a.gtype} vs {b.gtype} not supported")
     la = model.geoms[gi].link
     lb = model.geoms[gj].link
     return [(pt, nn, dd, mm, la, lb) for (pt, nn, dd, mm) in out]

@@ -202,8 +202,7 @@ def geom_table(model: Model, device):
             continue
         if g.gtype not in FLOPS_GEOM:
             raise NotImplementedError(
-                f"ray-caster geom type {g.gtype}: ROADMAP Queue 1, "
-                "'Remaining physics'")
+                f"the ray-caster draws no geom type {g.gtype}")
         s = [float(x) for x in g.size]
         r, hl = s[0], s[1]
         baba = (2 * hl) ** 2

@@ -35,9 +35,15 @@ is reseeded with one int64 drawn from it plus `1_000_003 + rollbacks`.
 episode_steps + 2`, as the JAX loop does, with `torch.profiler` (CPU and,
 on the card, CUDA activities) into a Chrome trace in that directory.
 
-What this slice does not carry raises `NotImplementedError` naming its
-ROADMAP Queue 1 item, before any work starts: `replay_spill host` and the
-multi-GPU mesh (`mesh_data_axis > 1`).
+`replay_spill host` keeps the full `replay_capacity` in a host ring
+behind a device ring of `replay_device_capacity` steps
+(`data/spill.py`), as the JAX loop does: each full-length chunk's episode
+is spilled and `replay_spill_refresh` host episodes are refreshed into the
+device ring at the chunk's end, and a rollback without the checkpointed
+ring drops the host window too. The host ring is not checkpointed.
+
+The multi-GPU mesh (`mesh_data_axis > 1`) raises `NotImplementedError`
+naming its ROADMAP Queue 1 item, before any work starts.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from sgqn_carla_tpu_torch.core.config import (
     Config, resolve_data_dir, resolve_device)
 from sgqn_carla_tpu_torch.core.logger import Logger
 from sgqn_carla_tpu_torch.data.replay import ReplayBuffer
+from sgqn_carla_tpu_torch.data.spill import HostSpill
 from sgqn_carla_tpu_torch.envs import make_env
 from sgqn_carla_tpu_torch.envs.vector import VectorEnv
 from sgqn_carla_tpu_torch.ops import augment
@@ -97,14 +104,11 @@ def write_info(cfg: Config, work_dir: str):
 
 
 def check_supported(cfg: Config):
-    """Raise for every option of the JAX loop this slice does not carry."""
-    def todo(what, item):
-        raise NotImplementedError(f"{what}: ROADMAP Queue 1, '{item}'")
-
-    if cfg.replay_spill != "none":
-        todo(f"replay_spill={cfg.replay_spill!r}", "Host-spill replay")
+    """Raise for the one option of the JAX loop the port does not carry
+    yet: the multi-GPU mesh."""
     if cfg.mesh_data_axis > 1:
-        todo("mesh_data_axis > 1", "Multi-GPU")
+        raise NotImplementedError(
+            "mesh_data_axis > 1: ROADMAP Queue 1, 'Multi-GPU'")
 
 
 def eval_modes(cfg: Config) -> List[str]:
@@ -138,10 +142,19 @@ def make_run_env(cfg: Config, device, mode: str = "train", seed=None,
         device=device)
 
 
+def device_capacity(cfg: Config) -> int:
+    """The device ring's capacity in steps: `replay_capacity`, or with
+    host spill the working set `replay_device_capacity` (at most the full
+    capacity)."""
+    if cfg.replay_spill == "host":
+        return min(cfg.replay_device_capacity, cfg.replay_capacity)
+    return cfg.replay_capacity
+
+
 def make_buffer(cfg: Config, env, device) -> ReplayBuffer:
     return ReplayBuffer(
         num_envs=cfg.num_envs, episode_len=env.max_episode_steps,
-        capacity=cfg.replay_capacity, image_size=cfg.image_size,
+        capacity=device_capacity(cfg), image_size=cfg.image_size,
         action_size=env.action_size, frame_stack=cfg.frame_stack,
         batch_size=cfg.batch_size, policy=cfg.replay_policy, device=device)
 
@@ -282,9 +295,9 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
     (the CARLA twin's `make_carla_env` for train_carla). Returns summary stats — the
     collapse guard's rollbacks, and wall-clock seconds of the warm-up
     chunks (env only), the catch-up burst (updates only), the update
-    chunks, each eval mode (seconds, env steps, kernel launches) and the
-    checkpoint saves — and the final agent, env, replay and generator
-    state."""
+    chunks, each eval mode (seconds, env steps, kernel launches), the
+    checkpoint saves and the host-spill exchanges — and the final agent,
+    env, replay, host spill (None without it) and generator state."""
     device = resolve_device(cfg.device)
     check_supported(cfg)
     work_dir = work_dir_for(cfg)
@@ -304,6 +317,11 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                  for m in eval_modes(cfg)]
     venv = VectorEnv(env, cfg.num_envs)
     buffer = make_buffer(cfg, env, device)
+    spill = None
+    if cfg.replay_spill == "host" and cfg.replay_capacity > device_capacity(
+            cfg):
+        spill = HostSpill(buffer, capacity=cfg.replay_capacity,
+                          refresh=cfg.replay_spill_refresh, seed=cfg.seed)
     agent = make_agent((3 * cfg.frame_stack, cfg.image_crop_size,
                         cfg.image_crop_size), (env.action_size,), cfg,
                        device=device)
@@ -318,7 +336,7 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
     timing = {"random_s": 0.0, "random_steps": 0, "catch_up_s": 0.0,
               "catch_up_updates": 0, "update_chunk_s": 0.0,
               "update_chunk_steps": 0, "eval": {}, "save_s": 0.0,
-              "saves": 0, "resume_bytes": 0}
+              "saves": 0, "resume_bytes": 0, "spill_s": 0.0}
     episode = 0
     step = 0
     start = time.time()
@@ -364,6 +382,8 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
 
     while step < cfg.train_steps:
         length = min(ep_len, cfg.train_steps - step)
+        spill_slot = (rstate.ep_ptr if spill is not None and length == ep_len
+                      else None)
         t0 = time.time()
         if step + length <= cfg.init_steps:
             states, rstate, obs, gen, ep_rewards = trainer.random_chunk(
@@ -395,6 +415,13 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                     cfg.profile_dir, f"episode_{episode}.trace.json"))
             timing["update_chunk_steps"] += length
         step += length
+        if spill_slot is not None:
+            # the chunk's end: spill the completed episode, refresh the
+            # device working set from the host window
+            t0 = time.time()
+            rstate = spill.after_chunk(rstate, spill_slot)
+            _sync(device)
+            timing["spill_s"] += time.time() - t0
 
         ep_reward = float(ep_rewards.mean())
         L.log("train/episode_reward", ep_reward, step)
@@ -444,6 +471,9 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                     states, obs = venv.reset(gen)
                     rstate = buffer.add_reset(buffer.init(), obs)
                     rewarm_until = step + max(cfg.init_steps, 0)
+                    if spill is not None:
+                        # the host window holds collapse-era episodes too
+                        spill.reset()
                 astate = _reset_burst_log(astate)
                 last_rollback = {"to_step": last, "at_step": detect_step,
                                  "ring_ep_counter": rstate.ep_counter}
@@ -500,7 +530,8 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
             "rollbacks": rollbacks, "final_metrics": last_metrics,
             "timing": timing,
             "resumed_at": resumed_at, "agent": agent, "agent_state": astate,
-            "replay": (buffer, rstate), "env_state": (states, obs),
+            "replay": (buffer, rstate), "spill": spill,
+            "env_state": (states, obs),
             "gen": gen,
             "counters": {"episode": episode, "caught_up": caught_up,
                          "next_eval": next_eval, "next_save": next_save,

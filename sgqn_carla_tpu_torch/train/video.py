@@ -5,8 +5,10 @@ own `render_eval` frames (448×448 by default, the mode's distraction
 re-applied), rendered on the device during the rollout and pulled to the
 host once per episode. Output: the frames as `<name>.npy` (T, H, W, 3)
 uint8, plus every ⌈T/8⌉-th frame (at most 8) as `<name>_f<i>.png`, written
-in pure Python; no mp4 encoder is used (the JAX package's imageio mp4 and
-native PNG writer are ROADMAP Queue 1, "Host I/O").
+by the host-I/O library's batched PNG encoder (`core/native.py`), or in
+pure Python where that library cannot be built, as in JAX. No mp4 is
+written: the JAX recorder's imageio encoder is outside the port's
+dependencies, a deliberate divergence.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from sgqn_carla_tpu_torch.agents.visualize import _write_png
+from sgqn_carla_tpu_torch.core import native
 
 
 class VideoRecorder:
@@ -52,9 +55,9 @@ class VideoRecorder:
             stem = stem[:-4]
         frames = np.stack(self.frames)
         np.save(stem + ".npy", frames)
-        every = max(1, -(-len(frames) // 8))
-        paths = [stem + ".npy"]
-        for i in range(0, len(frames), every):
-            paths.append(f"{stem}_f{i:04d}.png")
-            _write_png(paths[-1], frames[i])
-        return paths
+        idxs = list(range(0, len(frames), max(1, -(-len(frames) // 8))))
+        pngs = [f"{stem}_f{i:04d}.png" for i in idxs]
+        if not native.png_write_batch(frames[idxs], pngs):
+            for i, p in zip(idxs, pngs):
+                _write_png(p, frames[i])
+        return [stem + ".npy"] + pngs

@@ -687,3 +687,57 @@ def _to(state, dev):
 
     return mv(state)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cart", "weld"])
+def test_physics_api_on_card_matches_cpu(name):
+    """`Physics` on the card: 10 substeps from the same state under the
+    same control equal the CPU's within 1e-5, and `render` launches the
+    kernel once, its frame within the plain version's bounds of the CPU's
+    (the same scene through `render_frames` gives both segs)."""
+    from mjcf_models import CART, WELD
+    from sgqn_carla_tpu_torch.physics import engine
+    from sgqn_carla_tpu_torch.physics.api import Physics
+    from sgqn_carla_tpu_torch.render.cameras import camera_pose
+    from sgqn_carla_tpu_torch.render.raster import default_appearance
+
+    dev = _cuda()
+    xml = {"cart": CART, "weld": WELD}[name]
+    sides = [Physics.from_xml_string(xml, device=d) for d in (dev, "cpu")]
+    for p in sides:
+        q = np.linspace(-0.2, 0.3, p.model.nl)
+        p.set_state(q, np.full(p.model.nl, 0.1))
+        p.set_control(np.full(p.model.nu, 0.6))
+        p.step(10)
+    np.testing.assert_allclose(sides[0].qpos, sides[1].qpos, atol=1e-5)
+    np.testing.assert_allclose(sides[0].qvel, sides[1].qvel, atol=1e-5)
+    before = raycast.launches
+    frame = sides[0].render(64, 80)
+    assert raycast.launches == before + 1 and frame.shape == (64, 80, 3)
+    out = []
+    for p in sides:
+        m = p.model
+        q = torch.as_tensor(sides[1].qpos, device=p.device)[None]
+        kin = engine.forward_kinematics(m, q, torch.zeros_like(q))
+        Rg, pg = engine.geom_world(m, kin)
+        cam = camera_pose(m, 0, kin)
+        rgb, _, seg = raycast.render_frames(
+            m, Rg, pg, default_appearance(m, 1, p.device), cam.pos, cam.R,
+            m.cameras[0].fovy, 64, 80)
+        out.append((rgb.float().cpu() / 255.0, seg.cpu()))
+    _check(*out)
+
+
+@pytest.mark.cuda
+def test_composer_frame_matches_plain_version():
+    """composer_demo's pendula at 16 envs and 84 px: the kernel's frames
+    of posed scenes within the plain version's bounds, both poles drawn."""
+    dev = _cuda()
+    m, (Rg, pg, app, cpos, cR, fovy) = kc.task_scenes(
+        "composer_demo", "pendula", 16, 3, dev)
+    params = raycast._pack_params(Rg, pg, app, cpos, cR)
+    k = raycast._launch(m, params, fovy, 84, 84, True)
+    _check(k, raycast._render_packed_ref(m, params, fovy, 84, 84))
+    poles = {i for i, g in enumerate(m.geoms) if g.name.endswith("/pole")}
+    assert poles <= set(torch.unique(k[1]).tolist())

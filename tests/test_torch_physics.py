@@ -168,9 +168,15 @@ def test_walker_walk_golden_trajectory():
 
 
 def test_unported_models_raise():
-    """composer_demo is still ROADMAP Queue 1 (the quadruped loads)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdomains.load("composer_demo", "pendula")
+    """Every JAX domain is ported, composer_demo last: it loads as JAX's
+    does (two actuated hinges), and an unknown domain raises ValueError,
+    as JAX's `load` does."""
+    tt = tdomains.load("composer_demo", "pendula")
+    assert tt.model.nu == 2 and tt.model.joint_names == list(
+        jdomains.load("composer_demo", "pendula").model.joint_names)
+    assert tdomains.available() == jdomains.available()
+    with pytest.raises(ValueError, match="unknown domain"):
+        tdomains.load("no_such_domain", "task")
 
 
 def test_math3d_helpers_match():
@@ -192,23 +198,42 @@ def test_math3d_helpers_match():
     {"implicit_contacts": True, "hfield_geom": 0}, {"hfield_geom": 0},
     {"torso_gtype": ELLIPSOID}])
 def test_unported_model_features_raise(change):
-    """On the scalar path (walker, nl 9): ellipsoid and box pairs under
-    the explicit penalty (walker's torso made an ellipsoid or a box: its
-    pair with the floor; with the implicit limits too) are ROADMAP Queue 1;
-    a heightfield raises with or without implicit contacts, as the JAX
-    engine's scalar path refuses one (its terrain runs on the dense path
-    only). Implicit contacts and limits themselves are ported, and so are
-    ellipsoid pairs in the implicit contact stage and on the dense path
-    (tests/test_torch_legged_physics.py)."""
+    """On the scalar path (walker, nl 9) a heightfield raises with or
+    without implicit contacts, as the JAX engine's scalar path refuses one
+    (its terrain runs on the dense path only). Walker's torso made an
+    ellipsoid or a box of half-extents (0.07, 0.05, 0.3) (with the
+    implicit limits too) steps since the scalar path's box and ellipsoid
+    pairs were ported: one substep from the torso pressed into the floor,
+    its pair with the floor the only pair, equals the JAX engine's within
+    check_substeps' bounds."""
     tt = tdomains.load("walker", "walk")
+    jt = jdomains.load("walker", "walk")
     change = dict(change)
     gtype = change.pop("torso_gtype", None)
-    m = tt.model.replace(**change)
-    if gtype is not None:
-        m = m.replace(geoms=[dataclasses.replace(g, gtype=gtype)
-                             if g.name == "torso" else g for g in m.geoms])
+    m, jm = tt.model.replace(**change), jt.model.replace(**change)
     q = torch.zeros(1, tt.model.nl)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP" if gtype is not None
-                       else "dense path only"):
-        tengine.step(m, q, q, torch.zeros(1, 6))
+    if gtype is None:
+        with pytest.raises(NotImplementedError, match="dense path only"):
+            tengine.step(m, q, q, torch.zeros(1, 6))
+        return
+    torso = lambda g: (dataclasses.replace(
+        g, gtype=gtype, size=np.array([0.07, 0.05, 0.3]))
+        if g.name == "torso" else g)
+    pairs = np.array([[0, 1]], np.int32)  # floor, torso
+    m = m.replace(geoms=[torso(g) for g in m.geoms], contact_pairs=pairs)
+    jm = jm.replace(geoms=[torso(g) for g in jm.geoms], contact_pairs=pairs)
+    qpos = np.zeros((1, m.nl), np.float32)
+    qpos[0, 0], qpos[0, 2] = -1.2, 1.3  # rootz, rooty: low and tilted
+    ctrl = np.full((1, m.nu), 0.3, np.float32)
+    out = tengine.step(m, torch.from_numpy(qpos), torch.zeros(1, m.nl),
+                       torch.from_numpy(ctrl))
+    jout = jax.vmap(lambda a, b, c: jengine.step(jm, a, b, c))(
+        jnp.asarray(qpos), jnp.zeros((1, m.nl)), jnp.asarray(ctrl))
+    np.testing.assert_allclose(out.qpos.numpy(), np.asarray(jout.qpos),
+                               atol=1e-4)
+    np.testing.assert_allclose(out.qvel.numpy(), np.asarray(jout.qvel),
+                               atol=1e-3)
+    np.testing.assert_allclose(out.contact_force.numpy(),
+                               np.asarray(jout.contact_force),
+                               rtol=1e-3, atol=1e-2)
+    assert float(out.contact_force[0, 0]) > 0

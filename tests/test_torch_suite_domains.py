@@ -133,21 +133,32 @@ def test_point_mass_hard_gains_are_unit_and_not_parallel():
 
 
 def test_unported_suite_domains_raise():
-    """composer_demo is still ROADMAP Queue 1; quadruped and humanoid_CMU
-    load (their ellipsoid pairs on the dense path), but an ellipsoid pair
-    under the scalar path's explicit penalty still raises (no ported
-    model sends one there)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tdomains.load("composer_demo", "pendula")
+    """Every suite domain loads now, composer_demo last (the scalar path,
+    no contacts), and quadruped and humanoid_CMU on the dense path. An
+    ellipsoid pair under the scalar path's explicit penalty steps since
+    that path's ellipsoid pairs were ported: cheetah's back foot made an
+    ellipsoid and pressed into the floor, 2 substeps equal to the JAX
+    engine's within check_substeps' bounds."""
+    ct = tdomains.load("composer_demo", "pendula")
+    assert ct.model.nl < tengine._DENSE_NL and not len(ct.model.contact_pairs)
     for domain, task in (("quadruped", "walk"), ("humanoid_CMU", "stand")):
         assert tdomains.load(domain, task).model.nl >= tengine._DENSE_NL
     import dataclasses
+    import types
 
     from sgqn_carla_tpu_torch.physics.model import ELLIPSOID
 
-    m = tdomains.load("cheetah", "run").model
-    m = m.replace(geoms=[dataclasses.replace(g, gtype=ELLIPSOID, size=(
-        0.05, 0.05, 0.1)) if g.name == "bfoot" else g for g in m.geoms])
-    q = torch.zeros(1, m.nv)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tengine.step(m, q, q, torch.zeros(1, m.nu))
+    sides = []
+    for t in dc.tasks("cheetah", "run"):
+        sides.append(types.SimpleNamespace(model=t.model.replace(geoms=[
+            dataclasses.replace(g, gtype=ELLIPSOID, size=np.array(
+                [0.05, 0.05, 0.1])) if g.name == "bfoot" else g
+            for g in t.model.geoms])))
+    m = sides[1].model
+    bfoot = next(i for i, g in enumerate(m.geoms) if g.name == "bfoot")
+    pair = next(k for k, p in enumerate(m.contact_pairs) if bfoot in p)
+    q = np.zeros((2, m.nv), np.float32)
+    q[:, 1] = [-0.2, -0.25]  # rootz: the feet pressed into the floor
+    cf = dc.check_substeps(*sides, q, np.zeros_like(q),
+                           np.zeros((2, m.nu), np.float32), n=2)
+    assert (cf[:, pair] > 0).any()

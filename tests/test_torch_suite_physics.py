@@ -14,6 +14,8 @@ f32 pin of the physics entry points, and the model features that still
 raise.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -259,8 +261,10 @@ def test_box_and_ellipsoid_pairs_raise_on_the_dense_path(gtype):
     categories were ported — corner rows or one
     ellipsoid–plane row against the floor, point–box or point–ellipsoid
     rows against the limbs — in the penalty contacts and in the implicit
-    contact stage alike. The same geom type under the scalar path's
-    explicit penalty (walker's torso) still raises, ROADMAP Queue 1."""
+    contact stage alike. The same geom type as walker's torso, under the
+    scalar path's explicit penalty, steps since that path's box and
+    ellipsoid pairs were ported: one substep with the torso 4–6 cm in the
+    floor equals the JAX engine's within check_substeps' bounds."""
     import dataclasses
 
     tt = tdomains.load("humanoid", "walk")
@@ -283,9 +287,13 @@ def test_box_and_ellipsoid_pairs_raise_on_the_dense_path(gtype):
         m.replace(implicit_contacts=True), q, q, m.timestep)
     assert lam.shape == (1, dense.warm_size(m), 3)
     assert torch.isfinite(v).all() and torch.isfinite(dq).all()
-    wt = tdomains.load("walker", "walk").model
-    wm = wt.replace(geoms=[dataclasses.replace(g, gtype=gtype, size=size)
-                           if g.name == "torso" else g for g in wt.geoms])
-    wq = torch.zeros(1, wm.nv)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.step(wm, wq, wq, torch.zeros(1, wm.nu))
+    walker = []
+    for wt in dc.tasks("walker", "walk"):
+        walker.append(types.SimpleNamespace(model=wt.model.replace(geoms=[
+            dataclasses.replace(g, gtype=gtype, size=np.asarray(size))
+            if g.name == "torso" else g for g in wt.model.geoms])))
+    wq = np.zeros((1, walker[1].model.nv), np.float32)
+    wq[0, 0] = -1.25  # rootz: the torso's centre 5 cm above the floor
+    cf = dc.check_substeps(*walker, wq, np.zeros_like(wq),
+                           np.zeros((1, walker[1].model.nu), np.float32), n=1)
+    assert cf[0, 0] > 0  # the torso's pair with the floor

@@ -225,18 +225,27 @@ def test_attribution_images_match_jax_grids_and_names(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"domain_name": "composer_demo", "task_name": "pendula"},
-     "Remaining physics"),
-    ({"replay_spill": "host"}, "Host-spill"),
+    ({"domain_name": "composer_demo", "task_name": "pendula"}, None),
+    ({"replay_spill": "host"}, None),
     ({"mesh_data_axis": 2}, "Multi-GPU"),
     ({"domain_name": "composer_demo", "task_name": "pendula",
-      "eval_mode": "video_hard"}, "Remaining physics"),
+      "eval_mode": "video_hard"}, None),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
+    """The multi-GPU mesh is the one option the port still refuses, naming
+    its ROADMAP Queue 1 item, before any work starts; composer_demo (with
+    a video_hard eval too) and host spill pass the check, and their env
+    builds."""
     cfg = Config(**{**TINY, **kw}, device="cpu",
                  log_dir=str(tmp_path)).finalize()
-    with pytest.raises(NotImplementedError, match=item):
-        run_training(cfg)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            run_training(cfg)
+        assert not os.path.exists(loop.work_dir_for(cfg))
+        return
+    loop.check_supported(cfg)
+    env = loop.make_run_env(cfg, torch.device("cpu"))
+    assert env.task.name.startswith(cfg.domain_name)
 
 
 def test_cli_without_card_raises():
