@@ -210,13 +210,30 @@ Phases, each printing one JSON line:
      hostio   the host-I/O library built from native/hostio.cpp, 8
               448-px frames through png_write_batch read back equal, its
               write time beside the pure-Python writer's
- 15. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
+ 15. mesh     data parallelism (parallel/mesh.py): one spawn of 2 ranks
+              sharing the card over gloo (the spawn's seconds) runs, at
+              the published widths: 3 sgsac updates at batch 128 from one
+              host-filled 16-env ring (the ranks' states bit-identical,
+              the weights against one process's 3 updates under the Adam
+              rule; ms per update at 2 ranks and at 1, the collectives'
+              calls, bytes and ms per update), the same updates on one
+              rank over NCCL; walker at 16 envs, 8 per rank, one reset and
+              4 wrapper steps (each rank's frames against the plain
+              version at the kernel phase's bounds, its states against
+              the matching slice of one unsharded run; ms per env step
+              per rank, aggregate env steps/s against one rank at 16 envs,
+              idle share, launches per rank); run_training on cartpole SAC
+              through mesh_data_axis 2 (eval, saves with the ring; logs
+              once, replicas equal), then a one-rank resume of its
+              checkpoint
+ 16. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
      offline_eval, algorithms, pad_trainer, pad_offline_eval,
      external_data, dmcgb_domains, cartpole_trainer,
      distracting_cs_dmcgb, suite_domains, humanoid_trainer,
      grasp_domains, hopper_trainer, legged_domains, escape_trainer,
-     composer_domain, composer_trainer, mjcf_physics, spill_trainer; the
-     kernel's times on each domain's scene), then
+     composer_domain, composer_trainer, mjcf_physics, spill_trainer, and
+     per rank mesh_env and mesh_loop; the kernel's times on each domain's
+     scene), then
      the card's nvidia-smi line, then {"ok": true, "device": {...}} as
      the last line. The work dir build/chip_smoke_logs/ is emptied first.
 
@@ -239,14 +256,20 @@ DEV = "cuda"  # every phase's device
 # episodes of EP steps; SAC and SGQN train to S2 (warm-up to S1), saves
 # at S1 and S2, eval at S2; the resume and the PAD run go on to S3. The
 # widths are the published ones; only this depth is cut.
-EP = 4
+EP = 3
 S1, S2, S3 = 2 * EP, 4 * EP, 5 * EP
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 
+T0 = time.time()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line gets the run's seconds so far."""
+    if "phase" in obj:
+        obj["elapsed_s"] = time.time() - T0
     print(json.dumps(obj), flush=True)
 
 
@@ -2321,6 +2344,183 @@ def hostio_phase(smi):
     return equal
 
 
+def _adam_rule(live, ref, lr, spare=1):
+    """The post-Adam weights of two runs from the same start
+    (tests/test_torch_train.py's rule): every weight within 2·lr, all but
+    1% (or `spare` per tensor) within 1e-4. Returns (ok, the largest
+    difference, the tensors that break the rule: name, weights beyond
+    1e-4, size, largest difference)."""
+    worst, bad = 0.0, []
+    for mod, sd in ref.items():
+        for k, v in sd.items():
+            d = (live[mod][k].float() - v.float()).abs()
+            n, m = int((d > 1e-4).sum()), float(d.max())
+            worst = max(worst, m)
+            if m > 2 * lr or n > max(spare, 0.01 * d.numel()):
+                bad.append([f"{mod}.{k}", n, d.numel(), m])
+    return not bad, worst, bad
+
+
+def mesh_phase(cfg, smi, raycast, kc):
+    """Data parallelism on the card: one spawn of 2 ranks sharing cuda:0
+    over gloo runs three passes at the published widths. flagship-update:
+    sgsac updates (batch 128) from one host-filled 16-env ring: 1 update,
+    then 3 (and 3 more with the collectives timed), then 3 with the trunk
+    in f32; the ranks bit-identical each time; against one process the
+    Adam rule holds after 1 update and, with the f32 trunk, after 3; after
+    3 bf16 updates every weight is within the rule's 2·lr bound and the
+    share beyond 1e-4 is reported (bf16 rounding of other batch shapes
+    compounds: PERF.md §6). The 3 bf16 updates run again on one
+    rank over NCCL (a spawn of its own). flagship-env: walker at
+    16 envs, 8 per rank, one reset and 4 wrapper steps from the global
+    episode starts and actions; each rank's final frames against the
+    plain version (compare_frames), its states against the matching
+    slice of one unsharded 16-env run. loop: run_training on cartpole SAC
+    through mesh_data_axis 2 (8 envs), eval at S2, saves with the ring,
+    then a one-rank resume of the two-rank checkpoint to S3. Returns (ok,
+    kernel launches per rank of the env and loop passes, the frames'
+    largest error)."""
+    import statistics as st_
+
+    import torch
+
+    from sgqn_carla_tpu_torch.envs import make_env
+    from sgqn_carla_tpu_torch.parallel import dryrun, mesh as par
+    from sgqn_carla_tpu_torch.train.loop import run_training
+
+    start = time.time()
+    upd_cfg = cfg.replace(algorithm="sgsac", num_envs=16).finalize()
+    upd_kw = {"cfg": upd_cfg, "n_updates": 3, "T": 4, "seed": 5,
+              "device": DEV}
+    upd_runs = {"bf16_1": {**upd_kw, "n_updates": 1}, "bf16_3": upd_kw,
+                "f32_3": {**upd_kw, "cfg": upd_cfg.replace(precision="f32")}}
+    env_kw = {"num_envs": 16, "steps": 4, "episode_length": 16,
+              "seed": 3, "device": DEV}
+    log_dir = os.path.join(cfg.log_dir, "mesh")
+    loop_cfg = cfg.replace(domain_name="cartpole", task_name="swingup",
+                           num_envs=RECORD_E, eval_mode="train",
+                           eval_freq=S2, eval_episodes=4, save_freq=S1,
+                           checkpoint_replay=True, mesh_data_axis=2,
+                           log_dir=log_dir).finalize()
+    passes = ([("update", upd_runs["bf16_1"]),
+               ("update", {**upd_kw, "timed_updates": 3}),
+               ("update", upd_runs["f32_3"]),
+               ("env", {**env_kw, "check_frames": True, "profile": True}),
+               ("loop", {"cfg": loop_cfg, "env_factory": make_env})])
+    t0 = time.time()
+    ranks = par.launch(dryrun.run_passes, [f"{DEV}:0"] * 2, (passes,),
+                       timeout_s=900)
+    gloo_s = time.time() - t0
+    spawn_s = [r["start"] - t0 for r in ranks]
+    (*us0, e0, l0), (*us1, e1, l1) = (r["passes"] for r in ranks)
+    u0, u1 = us0[1], us1[1]  # the 3 bf16 updates
+    # one process: the same updates, the unsharded env
+    lr = upd_cfg.critic_lr + upd_cfg.aux_lr
+    upd = {}
+    for (name, kw), a, b in zip(upd_runs.items(), us0, us1):
+        one_run = dryrun.update_pass(None, **kw)
+        rules = {key: _adam_rule(a["params"][key], one_run["params"][key],
+                                 kw["n_updates"] * lr)
+                 for key in ("params", "aux_params")}
+        upd[name] = {
+            "ranks_identical": a["digest"] == b["digest"],
+            "adam_rule_vs_one_process": all(r[0] for r in rules.values()),
+            "max_weight_diff": max(r[1] for r in rules.values()),
+            "bound": 2 * kw["n_updates"] * lr,
+            "tensors_beyond_rule": [t for r in rules.values() for t in r[2]],
+            "max_loss_rel_diff": max(
+                abs(x[k] - y[k]) / max(abs(y[k]), 1e-9)
+                for x, y in zip(a["metrics"], one_run["metrics"])
+                for k in y if k.endswith("_loss")),
+            "ms_per_update_2_ranks": [st_.median(u["ms_per_update"])
+                                      for u in (a, b)],
+            "ms_per_update_1_process": st_.median(one_run["ms_per_update"])}
+        if name == "bf16_3":
+            one = one_run
+    t1 = time.time()  # one rank runs here, in a group of its own
+    nccl = par.launch(dryrun.run_passes, [f"{DEV}:0"], (
+        [("update", upd_kw)],), timeout_s=600)[0]["passes"][0]
+    nccl_s = time.time() - t1
+    ok_nccl, n_max, _ = _adam_rule(nccl["params"]["params"],
+                                   one["params"]["params"], 3 * lr)
+    full = dryrun.env_pass(None, **env_kw, profile=True)
+    slices = []
+    for e in (e0, e1):
+        lo, hi = e["envs"]
+        slices.append(max(float((e[k] - full[k][lo:hi]).abs().max())
+                          for k in ("qpos", "qvel")))
+    frames = [e["frames_vs_plain"] for e in (e0, e1)]
+    ms_rank = [e["ms_per_env_step"] for e in (e0, e1)]
+    agg = 16 / (max(ms_rank) / 1e3)
+    one_rank = 16 / (full["ms_per_env_step"] / 1e3)
+    # the loop: logs once, replicas equal, a one-rank resume
+    wd = l0["work_dir"]
+    with open(os.path.join(wd, "train.log")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(wd, "eval.log")) as f:
+        erows = [json.loads(line) for line in f]
+    t2 = time.time()
+    res = run_training(loop_cfg.replace(mesh_data_axis=1, train_steps=S3,
+                                        resume=True))
+    resume_s = time.time() - t2
+    ok = (all(u["ranks_identical"] for u in upd.values())
+          and upd["bf16_1"]["adam_rule_vs_one_process"]
+          and upd["f32_3"]["adam_rule_vs_one_process"]
+          and upd["bf16_3"]["max_weight_diff"] <= upd["bf16_3"]["bound"]
+          and ok_nccl
+          and all(f["ok"] for f in frames) and max(slices) <= 1e-4
+          and all(e["finite"] and e["kernel_launches"] == 1 + 4
+                  for e in (e0, e1))
+          and l0["digest"] == l1["digest"]
+          and [r["step"] for r in rows] == list(range(EP, S2 + 1, EP))
+          and len(erows) == 1 and all(_finite(v) for v in erows[0].values())
+          and "train" in l0["timing"]["eval"]
+          and all(_finite(v) for v in l0["final_metrics"].values())
+          and res["resumed_at"] == S2
+          and all(_finite(v) for v in res["final_metrics"].values()))
+    coll = u0["collectives_per_update"]
+    timed = u0["collectives_timed"]
+    launches = {"mesh_env": [e0["kernel_launches"], e1["kernel_launches"]],
+                "mesh_loop": [l0["launches"], l1["launches"]]}
+    emit({"phase": "mesh", "ok": ok, "card": smi, "backend": "gloo",
+          "devices": [f"{DEV}:0"] * 2, "spawn_s": spawn_s,
+          "gloo_call_s": gloo_s, "nccl_call_s": nccl_s,
+          "pass_s": [[p["seconds"] for p in r["passes"]] for r in ranks],
+          "flagship_update": {
+              **upd,
+              "collective_calls_per_update": coll["calls"],
+              "collective_bytes_per_update": coll["bytes"],
+              "collective_ms_per_update": 1e3 * timed["seconds"],
+              "nccl_world_1": {"adam_rule_vs_one_process": ok_nccl,
+                               "max_weight_diff": n_max,
+                               "identical_to_one_process":
+                                   nccl["digest"] == one["digest"],
+                               "ms_per_update":
+                                   st_.median(nccl["ms_per_update"])}},
+          "flagship_env": {
+              "frames_vs_plain": frames, "state_vs_unsharded": slices,
+              "ms_per_env_step_per_rank": ms_rank,
+              "ms_per_env_step_one_rank_16": full["ms_per_env_step"],
+              "env_steps_per_s_2_ranks": agg,
+              "env_steps_per_s_one_rank_16": one_rank,
+              "device_busy_ms_per_rank": [e.get("device_busy_ms")
+                                          for e in (e0, e1)],
+              "device_idle_share_per_rank": [
+                  _idle(e.get("device_busy_ms"), e["ms_per_env_step"])
+                  for e in (e0, e1)],
+              "kernel_launches_per_rank": launches["mesh_env"]},
+          "loop": {"ranks_identical": l0["digest"] == l1["digest"],
+                   "logged_steps": [r["step"] for r in rows],
+                   "eval_rows": len(erows), "seconds": l0["seconds"],
+                   "kernel_launches_per_rank": launches["mesh_loop"],
+                   "collectives_per_rank": [l0["collectives"],
+                                            l1["collectives"]],
+                   "one_rank_resume_at": res["resumed_at"],
+                   "resume_s": resume_s},
+          "phase_s": time.time() - start})
+    return ok, launches, max(f["max_abs_err"] for f in frames)
+
+
 def main():
     import torch
 
@@ -2573,7 +2773,13 @@ def main():
     if not hostio_phase(smi):
         return 1
 
-    # ---- 15. kernels line, card line, result
+    # ---- 15. data parallelism: 2 ranks sharing the card over gloo, one
+    # rank over NCCL
+    ok_me, me_launches, me_err = mesh_phase(cfg, smi, raycast, kc)
+    if not ok_me:
+        return 1
+
+    # ---- 16. kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",
@@ -2601,13 +2807,14 @@ def main():
                              "composer_domain": co_launches,
                              "composer_trainer": ct_launches,
                              "mjcf_physics": mj_launches,
-                             "spill_trainer": sp_launches},
+                             "spill_trainer": sp_launches,
+                             **me_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [
             d["kernel"] for d in list(dm_rows.values())
             + list(su_rows.values()) + list(gr_rows.values())
             + list(lg_rows.values()) + [co_row]] + [
                 r["frame_vs_plain"] for r in mj_rows.values()
-                if "frame_vs_plain" in r]),
+                if "frame_vs_plain" in r] + [{"max_abs_err": me_err}]),
         "ms": main_row["kernel_ms"],
         "device_ms": main_row["kernel_device_ms"],
         "device_ms_unculled": main_row["kernel_device_ms_unculled"],

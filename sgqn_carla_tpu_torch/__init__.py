@@ -16,6 +16,7 @@ This slice carries walker SAC training from pixels:
   ops/       3-vector algebra, crops
   agents/    SAC nets and update, JAX weight converter
   train/     fused loop, run_training, CLI
+  parallel/  data parallelism over torch.distributed, the staged dryrun
 """
 
 __version__ = "0.1.0"

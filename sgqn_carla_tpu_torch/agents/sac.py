@@ -24,6 +24,18 @@ gets the replay ring, which SODA samples on its own).
 `optax.adamw` is in the JAX agent: the decay applies to every trunk and
 critic parameter, biases and LayerNorm included, and a step the TD gate
 freezes applies none.
+
+Under a data-parallel mesh (`agent.mesh`, `parallel/mesh.py`), as the JAX
+update under its `data` sharding: every rank samples the same global batch
+(the replay gather completes it on every rank), makes every draw at the
+global batch's shape and keeps its `B / N` rows (`Batch.full` keeps the
+global batch), and computes the losses on those rows; each gradient
+computation averages its loss, gradients and scalar metrics over the ranks
+in one collective before its optimizer step (`value_and_grads(...,
+mesh)`, `Mesh.reduce_update`). So the TD gate decides on the averaged
+loss, the alpha step takes the averaged alpha loss, the burst snapshot
+gets the gathered per-row TD errors, and the replicas stay bit-identical
+while an N-rank update equals a one-rank update up to summation order.
 """
 
 from __future__ import annotations
@@ -136,10 +148,11 @@ def _params(*modules) -> List[torch.Tensor]:
     return [p for m in modules for p in m.parameters()]
 
 
-def value_and_grads(fn, params: List[torch.Tensor]):
+def value_and_grads(fn, params: List[torch.Tensor], mesh=None):
     """(loss, aux, grads of loss over `params`) of `fn() -> (loss, aux)`.
     The agent's parameters live with requires_grad off; they are switched
-    on for this one backward only."""
+    on for this one backward only. With a `mesh` the loss and the grads
+    come back averaged over its ranks (one collective)."""
     with torch.enable_grad():
         for p in params:
             p.requires_grad_(True)
@@ -149,7 +162,10 @@ def value_and_grads(fn, params: List[torch.Tensor]):
         finally:
             for p in params:
                 p.requires_grad_(False)
-    return loss.detach(), aux, list(grads)
+    loss, grads = loss.detach(), list(grads)
+    if mesh is not None:
+        loss, grads, _ = mesh.reduce_update(loss, grads)
+    return loss, aux, grads
 
 
 def overlay_pool_on(overlay_pool, device, who: str) -> torch.Tensor:
@@ -193,6 +209,35 @@ class SAC:
         self.critic_tx = Adam(cfg.critic_lr, cfg.critic_beta,
                               weight_decay=cfg.critic_weight_decay)
         self.alpha_tx = Adam(cfg.alpha_lr, cfg.alpha_beta)
+        self.mesh = None  # a parallel.Mesh: data-parallel updates
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global-batch tensor (all of it off a
+        mesh)."""
+        return x if self.mesh is None else self.mesh.rows(x)
+
+    def _local(self, full: Batch) -> Batch:
+        """This rank's rows of the global batch, with the global batch
+        kept as `full` (the batch itself off a mesh)."""
+        if self.mesh is None:
+            return full
+        r = lambda x: None if x is None else self.mesh.rows(x)
+        return Batch(obs=r(full.obs), action=r(full.action),
+                     reward=r(full.reward), next_obs=r(full.next_obs),
+                     not_done=r(full.not_done), idx=r(full.idx),
+                     pos=r(full.pos), full=full)
+
+    def _pool_idx(self, state: AgentState, draws: Dict, key: str, pool,
+                  batch: Batch) -> torch.Tensor:
+        """This rank's rows of the overlay-pool indices `key` (injected,
+        else drawn as `augment.random_overlay` draws them, at the global
+        batch size)."""
+        idx = draws.get(key)
+        if idx is None:
+            b = (batch.full or batch).obs.shape[0]
+            idx = torch.randint(0, pool.shape[0], (b,), generator=state.gen,
+                                device=pool.device)
+        return self._rows(idx)
 
     # ----------------------------------------------------------------- init
     def make_modules(self) -> nn.ModuleDict:
@@ -327,8 +372,14 @@ class SAC:
                      ctx=None, draws: Optional[Dict] = None):
         """(loss, metrics, grads over trunk + critic params)."""
         params = _params(state.params["trunk"], state.params["critic"])
-        return value_and_grads(lambda: self.critic_loss_fn(
+        loss, metrics, grads = value_and_grads(lambda: self.critic_loss_fn(
             state.params, state, batch, target_q, ctx, draws), params)
+        if self.mesh is not None:
+            metrics = {k: v for k, v in metrics.items() if k != "critic_loss"}
+            loss, grads, metrics = self.mesh.reduce_update(loss, grads,
+                                                           metrics)
+            metrics["critic_loss"] = loss
+        return loss, metrics, grads
 
     def update_critic(self, state: AgentState, batch: Batch, noise,
                       ctx=None, draws: Optional[Dict] = None):
@@ -402,12 +453,17 @@ class SAC:
             return torch.mean(alpha * log_pi - torch.minimum(q1, q2)), log_pi
 
         a_loss, log_pi, a_grads = value_and_grads(actor_loss, actor_params)
-        self.actor_tx.step(actor_params, a_grads, state.actor_opt,
-                           active=active)
         # alpha loss mean(α·(−log_pi − H̄)): d/dlogα = mean(α·target)
-        # (the loss is its own gradient: d(e^x·t)/dx = e^x·t)
+        # (the loss is its own gradient: d(e^x·t)/dx = e^x·t), so under a
+        # mesh it is averaged with the actor's grads
         target = (-log_pi.detach() - self.target_entropy)
         al_loss = torch.mean(torch.exp(state.log_alpha) * target)
+        if self.mesh is not None:
+            a_loss, a_grads, m = self.mesh.reduce_update(
+                a_loss, a_grads, {"alpha_loss": al_loss})
+            al_loss = m["alpha_loss"]
+        self.actor_tx.step(actor_params, a_grads, state.actor_opt,
+                           active=active)
         self.alpha_tx.step([state.log_alpha], [al_loss], state.alpha_opt,
                            active=active)
         if active is not None:
@@ -450,15 +506,18 @@ class SAC:
         → targets (every critic_target_update_freq) → aux → step. `draws`
         may inject "idx" (env_i, ep_i, s), "crop_obs"/"crop_next" offsets,
         "target_noise" and "actor_noise" (B, A), and the algorithm's own
-        keys; whatever is missing is drawn from `state.gen`."""
+        keys; whatever is missing is drawn from `state.gen`. Under a mesh
+        the draws, injected or not, have the global batch's shapes."""
         draws = draws or {}
         B, A = self.cfg.batch_size, self.action_dim
-        batch = self.sample_batch(buffer, rstate, state, draws)
+        full = self.sample_batch(buffer, rstate, state, draws)
+        batch = self._local(full)
         ctx = self.update_context(state, batch, draws)
         t_noise = draws.get("target_noise")
         if t_noise is None:
             t_noise = self._noise(state, (B, A))
-        state, c_metrics = self.update_critic(state, batch, t_noise, ctx,
+        state, c_metrics = self.update_critic(state, batch,
+                                              self._rows(t_noise), ctx,
                                               draws)
         td1, td2 = c_metrics.pop("_td1"), c_metrics.pop("_td2")
         if state.burst_log is not None and td1.shape[0] == B:
@@ -466,16 +525,16 @@ class SAC:
             # last drained it (replay provenance + per-sample TD errors)
             bl = state.burst_log
             fresh = (c_metrics["td_gate_fired"] > 0) & (bl["valid"] == 0)
-            env_i, ep_i = batch.idx[:, 0], batch.idx[:, 1]
+            env_i, ep_i = full.idx[:, 0], full.idx[:, 1]
             i32 = lambda x: x.to(torch.int32)
             rec = {"valid": torch.ones_like(bl["valid"]),
                    "step": torch.full_like(bl["step"], state.step),
                    "ep_counter": torch.full_like(bl["ep_counter"],
                                                  rstate.ep_counter),
                    "env_i": i32(env_i), "ep_i": i32(ep_i),
-                   "s": i32(batch.idx[:, 2]),
-                   "slot_ep": rstate.slot_ep[env_i, ep_i],
-                   "reward": batch.reward.reshape(-1), "td1": td1, "td2": td2}
+                   "s": i32(full.idx[:, 2]),
+                   "slot_ep": buffer.slot_ep_of(rstate, env_i, ep_i),
+                   "reward": full.reward.reshape(-1), "td1": td1, "td2": td2}
             state.burst_log = {k: torch.where(fresh, rec[k], bl[k])
                                for k in bl}
 
@@ -485,8 +544,8 @@ class SAC:
                 a_noise = self._noise(state, (B, A))
             active = (None if state.gate_cooldown is None
                       else (state.gate_cooldown == 0).float())
-            state, a_metrics = self.update_actor_and_alpha(state, batch,
-                                                           a_noise, active)
+            state, a_metrics = self.update_actor_and_alpha(
+                state, batch, self._rows(a_noise), active)
         else:
             zero = torch.zeros((), device=self.device)
             a_metrics = {"actor_loss": zero, "alpha_loss": zero,

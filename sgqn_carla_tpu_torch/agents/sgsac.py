@@ -28,6 +28,11 @@ of obs and masked obs. It reads no environment variable.
 Draws (`update`'s `draws`, else `state.gen`): "fill" (a uniform in [0, 1)
 scaled to [obs.min(), obs.max()]), "fill_color" (B, 3) and "fill_use" (B,)
 uniforms for the color mode, and "overlay_idx" (B,) pool indices.
+
+Under a mesh (`sac.py`) the mask is per row, so each rank computes it on
+its rows; the fill's range is the global batch's, the colour, use and
+overlay draws are made at the global batch's shape and sliced to the
+rank's rows, and the aux step's gradients are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -109,19 +114,25 @@ class SGSAC(SAC):
         u = u.to(self.device, torch.float32).reshape(shape)
         return torch.maximum(lo, u * (hi - lo) + lo)
 
-    def _fill(self, state: AgentState, obs, draws: Dict):
+    def _fill(self, state: AgentState, obs, draws: Dict, whole=None):
         """Background fill of the masked-obs view: one scalar in
         [obs.min, obs.max] ("scalar"), or per sample a colour tiled over
-        the frame stack with probability p, else that scalar ("color")."""
-        lo, hi = obs.amin(), obs.amax()
+        the frame stack with probability p, else that scalar ("color").
+        Under a mesh `whole` is the global batch's obs: the range is its
+        own and the per-sample draws are made at its size, then this
+        rank's rows kept."""
+        ref = obs if whole is None else whole.float()
+        lo, hi = ref.amin(), ref.amax()
         scalar = self._uniform(state, draws, "fill", (), lo, hi)
         if self._fill_mode != "color":
             return scalar
-        b, frames = obs.shape[0], obs.shape[1] // 3
-        col = self._uniform(state, draws, "fill_color", (b, 3), lo, hi)
+        b, frames = ref.shape[0], obs.shape[1] // 3
+        col = self._rows(self._uniform(state, draws, "fill_color", (b, 3),
+                                       lo, hi))
         col = col.repeat(1, frames)[..., None, None]
-        use = self._uniform(state, draws, "fill_use", (b, 1, 1, 1),
-                            obs.new_zeros(()), obs.new_ones(())) < self._fill_p
+        use = self._rows(self._uniform(
+            state, draws, "fill_use", (b, 1, 1, 1), obs.new_zeros(()),
+            obs.new_ones(()))) < self._fill_p
         if self._fill_warmup > 0 and state.step < self._fill_warmup:
             use = torch.zeros_like(use)
         return torch.where(use, col, scalar)
@@ -144,8 +155,9 @@ class SGSAC(SAC):
         if not self.consistency:
             return super().critic_loss_fn(params, state, batch, target_q)
         obs = batch.obs.float()
-        masked = torch.where(ctx["mask"], obs,
-                             self._fill(state, obs, draws or {}))
+        masked = torch.where(ctx["mask"], obs, self._fill(
+            state, obs, draws or {},
+            None if batch.full is None else batch.full.obs))
         q1, q2 = self.critic_forward(params, obs, batch.action)
         mq1, mq2 = self.critic_forward(params, masked, batch.action)
         loss = torch.mean((q1 - target_q) ** 2) + torch.mean((q2 - target_q) ** 2)
@@ -165,8 +177,9 @@ class SGSAC(SAC):
                   else (state.gate_cooldown == 0).float())
         mask = ctx["mask"] if ctx is not None else self._mask(state, batch)
         s_tilde = augment.random_overlay(
-            state.gen, batch.obs.float(), self.overlay_pool,
-            self.cfg.alpha_blending, idx=draws.get("overlay_idx"))
+            None, batch.obs.float(), self.overlay_pool,
+            self.cfg.alpha_blending, idx=self._pool_idx(
+                state, draws, "overlay_idx", self.overlay_pool, batch))
         target = mask.float()
         params = self._aux_tree(state.params, state.aux_params)
 
@@ -175,7 +188,7 @@ class SGSAC(SAC):
                 state.params, state.aux_params, s_tilde, batch.action)
             return F.binary_cross_entropy_with_logits(logits, target), None
 
-        loss, _, grads = value_and_grads(aux_loss, params)
+        loss, _, grads = value_and_grads(aux_loss, params, self.mesh)
         self.aux_tx.step(params, grads, state.aux_opt, active=active)
         if active is not None:
             loss = torch.where(active > 0, loss, torch.zeros_like(loss))

@@ -24,6 +24,17 @@ None of them is frozen by the TD gate's cooldown, as in the JAX package
 (SGQN's is). The packed SVEA formulation of the JAX package's
 `SGQN_PACKED` switch is not ported; the default path is.
 
+Under a data-parallel mesh (`sac.py`): RAD, DrQ, SVEA and PAD are
+row-separable, so each rank computes its rows of the global batch and
+the gradients are averaged over the ranks. CURL's B × B InfoNCE logits and
+SODA's BatchNorm statistics over its own `soda_batch_size` sample couple
+rows across ranks; each rank runs these two aux steps on the whole
+gathered batch (`Batch.full`, SODA's sampler gathers its own), so every
+rank computes the same loss, and their gradients still go through the
+ranks' average, which keeps the replicas bit-identical even where a
+backward pass is not deterministic. A sharded version with a gather that
+autograd sees through is not written (ROADMAP).
+
 Draws (`update`'s `draws`, else `state.gen`): the base keys; "crop_pos"
 (CURL's positive-crop offsets); "overlay_idx" (SVEA's pool indices);
 "soda_idx", "soda_crop_clean", "soda_crop_aug" and "soda_overlay_idx"
@@ -98,8 +109,9 @@ class SVEA(SAC):
         a, b = self.cfg.svea_alpha, self.cfg.svea_beta
         obs = batch.obs.float()
         obs_aug = augment.random_overlay(
-            state.gen, obs, self.overlay_pool, self.cfg.alpha_blending,
-            idx=(draws or {}).get("overlay_idx"))
+            None, obs, self.overlay_pool, self.cfg.alpha_blending,
+            idx=self._pool_idx(state, draws or {}, "overlay_idx",
+                               self.overlay_pool, batch))
 
         def td(q1, q2, tq):
             return torch.mean((q1 - tq) ** 2) + torch.mean((q2 - tq) ** 2)
@@ -153,6 +165,7 @@ class CURL(_AuxSAC):
                    draws: Dict, ctx=None):
         if state.step % self.cfg.aux_update_freq != 0:
             return state, self._zero_aux()
+        batch = batch.full or batch  # InfoNCE over the whole batch
         tgt = state.target_params
         with torch.no_grad():
             z_pos = tgt["critic"].encode(tgt["trunk"](batch.pos.float()))
@@ -165,7 +178,7 @@ class CURL(_AuxSAC):
             labels = torch.arange(logits.shape[0], device=logits.device)
             return F.cross_entropy(logits, labels), None
 
-        loss, _, grads = value_and_grads(info_nce, params)
+        loss, _, grads = value_and_grads(info_nce, params, self.mesh)
         self.aux_tx.step(params, grads, state.aux_opt)
         return state, {"aux_loss": loss}
 
@@ -211,7 +224,10 @@ class PAD(_AuxSAC):
                                     batch.obs, batch.next_obs)
             return torch.mean((pred - batch.action) ** 2), None
 
-        loss, _, grads = value_and_grads(inverse_dynamics, params)
+        # `adapt`'s batch (the offline eval, one process) is no rank's rows
+        loss, _, grads = value_and_grads(inverse_dynamics, params,
+                                         None if batch.full is None
+                                         else self.mesh)
         self.aux_tx.step(params, grads, state.aux_opt)
         return state, {"aux_loss": loss}
 
@@ -315,7 +331,7 @@ class SODA(_AuxSAC):
             return (torch.mean((unit(h0) - h1) ** 2),
                     {"proj": s_proj, "pred": s_pred})
 
-        loss, new_stats, grads = value_and_grads(byol, params)
+        loss, new_stats, grads = value_and_grads(byol, params, self.mesh)
         self.aux_tx.step(params, grads, state.aux_opt)
         state.aux_extra["stats"] = new_stats
         ema_(tgt["trunk"], state.params["trunk"], cfg.soda_tau)

@@ -11,6 +11,15 @@ never two), and the write pointers are Python integers — episodes are
 lockstep and fixed-length, so the pointers are known on the host without
 reading the device. Samplers draw from a `torch.Generator` on the ring's
 device, and take injected indices so tests can feed the JAX buffer's draws.
+
+Under a data-parallel mesh (`mesh`, `parallel/mesh.py`) the ring holds
+this rank's envs only, as the JAX ring is sharded on its env axis; the
+pointers are host ints that agree on every rank. The samplers draw global
+`env_i` in [0, num_envs) from the replicated generator, fill the rows whose
+env this rank owns and zero the rest, and one byte-sum over the ranks
+completes the batch on every rank. Slots complete in lockstep, so every
+env's `slot_ep` entry of a slot is the same (`slot_ep_of` reads a rank's
+first env's).
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ class Batch:
     not_done: torch.Tensor  # (B, 1)
     idx: Optional[torch.Tensor] = None  # (B, 3) int (env_i, ep_i, s)
     pos: Optional[torch.Tensor] = None  # (B, K*3, h, w) CURL's positive crop
+    # under a mesh: the global batch this rank's rows were taken from
+    full: Optional["Batch"] = None
 
     def replace(self, **kw) -> "Batch":
         return replace(self, **kw)
@@ -53,8 +64,11 @@ class ReplayBuffer:
     def __init__(self, *, num_envs: int, episode_len: int, capacity: int,
                  image_size: int, action_size: int, frame_stack: int = 3,
                  batch_size: int = 128, policy: str = "fifo",
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.num_envs = num_envs
+        self.mesh = mesh
+        self.env_lo, self.env_hi = (0, num_envs) if mesh is None else (
+            mesh.env_range(num_envs))
         self.T = episode_len
         steps_per_env = max(capacity // max(num_envs, 1), episode_len)
         self.num_episodes = max(steps_per_env // episode_len, 2)
@@ -68,7 +82,7 @@ class ReplayBuffer:
         self.device = torch.device(device)
 
     def init(self) -> ReplayState:
-        E, N, T = self.num_envs, self.num_episodes, self.T
+        E, N, T = self.env_hi - self.env_lo, self.num_episodes, self.T
         s = self.image_size
         dev = self.device
         return ReplayState(
@@ -137,6 +151,29 @@ class ReplayBuffer:
         s = torch.randint(0, s_hi, (batch_size,), generator=gen, device=dev)
         return env_i, ep_i, s
 
+    def _local(self, env_i):
+        """(this rank's row of each global env_i, 0 where another rank
+        owns it; the owned mask), or (env_i, None) off a mesh."""
+        if self.mesh is None:
+            return env_i, None
+        own = (env_i >= self.env_lo) & (env_i < self.env_hi)
+        return torch.where(own, env_i - self.env_lo, 0), own
+
+    def _complete(self, own, rows):
+        """The global batch from this rank's owned rows (the others
+        zeroed, then summed as bytes over the ranks)."""
+        if own is None:
+            return rows
+        rows = [r.masked_fill(~own.reshape((-1,) + (1,) * (r.dim() - 1)), 0)
+                for r in rows]
+        return self.mesh.sum_bytes(rows)
+
+    def slot_ep_of(self, state: ReplayState, env_i, ep_i) -> torch.Tensor:
+        """`slot_ep` at global (env_i, ep_i)."""
+        if self.mesh is None:
+            return state.slot_ep[env_i, ep_i]
+        return state.slot_ep[0, ep_i]
+
     def sample_raw(self, state: ReplayState, gen: Optional[torch.Generator],
                    batch_size: int = 0,
                    idx: Optional[Tuple[torch.Tensor, ...]] = None) -> Batch:
@@ -145,10 +182,11 @@ class ReplayBuffer:
         env_i, ep_i, s = idx if idx is not None else self.sample_idx(
             state, gen, b)
         env_i, ep_i, s = (x.to(self.device, torch.long) for x in (env_i, ep_i, s))
-        obs = self._stack(state, env_i, ep_i, s)
-        next_obs = self._stack(state, env_i, ep_i, s + 1)
-        action = state.actions[env_i, ep_i, s]
-        reward = state.rewards[env_i, ep_i, s][:, None]
+        li, own = self._local(env_i)
+        obs, next_obs, action, reward = self._complete(own, [
+            self._stack(state, li, ep_i, s),
+            self._stack(state, li, ep_i, s + 1),
+            state.actions[li, ep_i, s], state.rewards[li, ep_i, s][:, None]])
         not_done = torch.ones((env_i.shape[0], 1), device=self.device)
         return Batch(obs=obs, action=action, reward=reward,
                      next_obs=next_obs, not_done=not_done,
@@ -160,7 +198,8 @@ class ReplayBuffer:
                         ) -> torch.Tensor:
         """SODA's sampler: (batch_size, K*3, H, W) uint8 stacks at uniform
         (env, episode, step) draws, or at `idx` = (env_i, ep_i, s)."""
-        env_i, ep_i, s = idx if idx is not None else self.sample_idx(
-            state, gen, batch_size)
-        return self._stack(state, *(x.to(self.device, torch.long)
-                                    for x in (env_i, ep_i, s)))
+        env_i, ep_i, s = (x.to(self.device, torch.long) for x in (
+            idx if idx is not None else self.sample_idx(state, gen,
+                                                        batch_size)))
+        li, own = self._local(env_i)
+        return self._complete(own, [self._stack(state, li, ep_i, s)])[0]

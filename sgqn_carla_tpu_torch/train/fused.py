@@ -4,6 +4,12 @@ Counterpart of `sgqn_carla_tpu/train/fused.py`. The JAX chunk is one jitted
 `lax.scan`; here it is a Python loop of device work that never reads a
 value back to the host, so the host only waits at the chunk boundary where
 the training loop logs. The replay ring is written in place: one ring in memory.
+
+Under a data-parallel mesh (`mesh`) the env batch is this rank's
+`num_envs / N` envs; the exploration noise and the warm-up actions are
+drawn from the replicated generator at the global `(num_envs, A)` and this
+rank's rows kept, so each rank's envs get distinct draws, equal to the
+one-device stream's rows.
 """
 
 from __future__ import annotations
@@ -22,10 +28,21 @@ def _mean_metrics(ms) -> Dict[str, torch.Tensor]:
 
 
 class FusedTrainer:
-    def __init__(self, agent: SAC, venv: VectorEnv, buffer: ReplayBuffer):
+    def __init__(self, agent: SAC, venv: VectorEnv, buffer: ReplayBuffer,
+                 mesh=None):
         self.agent = agent
         self.venv = venv
         self.buffer = buffer
+        world = 1 if mesh is None else mesh.world
+        self.num_envs = venv.num_envs * world  # the global env batch
+        self.lo = 0 if mesh is None else mesh.rank * venv.num_envs
+        self.hi = self.lo + venv.num_envs
+
+    def _draw(self, fn, gen, device):
+        """This rank's rows of a global (num_envs, A) draw."""
+        x = fn((self.num_envs, self.venv.action_size), generator=gen,
+               device=device)
+        return x[self.lo:self.hi]
 
     def run_chunk(self, length: int, do_updates: bool, astate: AgentState,
                   states, rstate: ReplayState, obs, gen: torch.Generator):
@@ -38,8 +55,7 @@ class FusedTrainer:
         rewards = None
         ms = []
         for _ in range(length):
-            noise = torch.randn((venv.num_envs, venv.action_size),
-                                generator=gen, device=obs.device)
+            noise = self._draw(torch.randn, gen, obs.device)
             actions = agent.sample_action(astate, obs, noise)
             states, res = venv.step(states, actions)
             rstate = buffer.add(rstate, actions, res.reward, res.obs)
@@ -57,8 +73,7 @@ class FusedTrainer:
         venv, buffer = self.venv, self.buffer
         rewards = None
         for _ in range(length):
-            actions = torch.rand((venv.num_envs, venv.action_size),
-                                 generator=gen, device=obs.device) * 2 - 1
+            actions = self._draw(torch.rand, gen, obs.device) * 2 - 1
             states, res = venv.step(states, actions)
             rstate = buffer.add(rstate, actions, res.reward, res.obs)
             obs = res.obs

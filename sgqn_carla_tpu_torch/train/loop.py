@@ -33,7 +33,10 @@ is reseeded with one int64 drawn from it plus `1_000_003 + rollbacks`.
 
 `profile_dir` traces the update chunk of episode `init_steps //
 episode_steps + 2`, as the JAX loop does, with `torch.profiler` (CPU and,
-on the card, CUDA activities) into a Chrome trace in that directory.
+on the card, CUDA activities; under a mesh on rank 0 alone) into a Chrome
+trace in that directory. CUDA activity alone kept the kernel events
+at 78% of the bytes on an H100 (`scripts/trace_bytes.py`), so both are
+kept.
 
 `replay_spill host` keeps the full `replay_capacity` in a host ring
 behind a device ring of `replay_device_capacity` steps
@@ -42,8 +45,29 @@ is spilled and `replay_spill_refresh` host episodes are refreshed into the
 device ring at the chunk's end, and a rollback without the checkpointed
 ring drops the host window too. The host ring is not checkpointed.
 
-The multi-GPU mesh (`mesh_data_axis > 1`) raises `NotImplementedError`
-naming its ROADMAP Queue 1 item, before any work starts.
+The multi-GPU mesh (`mesh_data_axis = N > 1`, `parallel/mesh.py`): the
+JAX loop's data parallelism over the env batch, one process per rank.
+`run_training` starts N ranks on cuda:0 .. cuda:N-1 (N CPU ranks over
+gloo with `device cpu`), joins them under `torchrun`, or runs as one rank
+of a caller's `mesh`. Each rank steps `num_envs / N` envs and holds their
+slice of the ring; the parameters, optimizer states and the loop
+generator are the same on every rank (rank 0's broadcast at the start and
+after every restore, then kept equal by the averaged updates). Each
+rank's env resets draw from a generator seeded from one draw of the loop
+generator and its rank (`Mesh.env_generator`): a deliberate divergence
+from JAX, whose sharded run draws the one-device env stream. Rank 0 alone
+writes info.log, train.log, eval.log, burst_log.jsonl, the attribution
+imagery, the video and the profile trace, and runs the evaluation while
+the others wait; the loop generator it advanced is then broadcast. The
+chunk's episode reward is averaged over the ranks before the collapse
+guard, so every rank takes the same rollback. Checkpoints hold the
+one-device layout: with `checkpoint_replay` the env states, obs and ring
+are gathered and rank 0 writes them; a restore reads the file on every
+rank and keeps the rank's slice, so a checkpoint resumes at any N that
+divides `num_envs`. Refused before any work, as the JAX loop asserts: an
+`num_envs` or `batch_size` that N does not divide, `replay_spill host`
+with a host ring larger than the device ring, and fewer cards than N for
+a `cuda` run the loop starts itself.
 """
 
 from __future__ import annotations
@@ -70,6 +94,7 @@ from sgqn_carla_tpu_torch.envs import make_env
 from sgqn_carla_tpu_torch.envs.vector import VectorEnv
 from sgqn_carla_tpu_torch.ops import augment
 from sgqn_carla_tpu_torch.ops.guided_backprop import compute_attribution_mask
+from sgqn_carla_tpu_torch.parallel import mesh as par
 from sgqn_carla_tpu_torch.render import raycast
 from sgqn_carla_tpu_torch.train.fused import FusedTrainer
 from sgqn_carla_tpu_torch.train.video import VideoRecorder
@@ -103,12 +128,31 @@ def write_info(cfg: Config, work_dir: str):
                             "args": cfg.__dict__}, default=str) + "\n")
 
 
-def check_supported(cfg: Config):
-    """Raise for the one option of the JAX loop the port does not carry
-    yet: the multi-GPU mesh."""
-    if cfg.mesh_data_axis > 1:
-        raise NotImplementedError(
-            "mesh_data_axis > 1: ROADMAP Queue 1, 'Multi-GPU'")
+def check_supported(cfg: Config, mesh: Optional[par.Mesh] = None):
+    """Raise, before any work, for the mesh layouts the loop refuses (the
+    JAX loop's asserts): `num_envs` or `batch_size` not divisible by
+    `mesh_data_axis`, host spill with a host ring larger than the device
+    ring, and fewer cards than ranks for a `cuda` run that is not given
+    its `mesh` or started by torchrun."""
+    n = cfg.mesh_data_axis
+    if n <= 1:
+        return
+    par.MeshSpec(data=n)
+    for name in ("num_envs", "batch_size"):
+        if getattr(cfg, name) % n:
+            raise ValueError(f"{name}={getattr(cfg, name)} must divide over "
+                             f"mesh_data_axis={n}")
+    if cfg.replay_spill == "host" and cfg.replay_capacity > device_capacity(
+            cfg):
+        raise ValueError(
+            "replay_spill=host is single-device (the chunk-boundary "
+            "exchange would need per-rank transfers under a mesh)")
+    if mesh is not None:
+        if mesh.world != n:
+            raise ValueError(f"mesh of {mesh.world} ranks for "
+                             f"mesh_data_axis={n}")
+    elif "WORLD_SIZE" not in os.environ:
+        par.default_devices(cfg.device, n)
 
 
 def eval_modes(cfg: Config) -> List[str]:
@@ -151,12 +195,13 @@ def device_capacity(cfg: Config) -> int:
     return cfg.replay_capacity
 
 
-def make_buffer(cfg: Config, env, device) -> ReplayBuffer:
+def make_buffer(cfg: Config, env, device, mesh=None) -> ReplayBuffer:
     return ReplayBuffer(
         num_envs=cfg.num_envs, episode_len=env.max_episode_steps,
         capacity=device_capacity(cfg), image_size=cfg.image_size,
         action_size=env.action_size, frame_stack=cfg.frame_stack,
-        batch_size=cfg.batch_size, policy=cfg.replay_policy, device=device)
+        batch_size=cfg.batch_size, policy=cfg.replay_policy, device=device,
+        mesh=mesh)
 
 
 LOOP_KEYS = ("astate", "gen", "episode", "caught_up", "next_eval",
@@ -196,10 +241,12 @@ def _append_jsonl(work_dir: str, rec: Dict):
 
 
 def drain_burst_log(work_dir: str, astate, metrics: Dict, step: int,
-                    rollbacks: int, last_rollback: Optional[Dict]):
+                    rollbacks: int, last_rollback: Optional[Dict],
+                    write: bool = True):
     """Persist the agent's burst snapshot when the TD gate fired inside the
     chunk (burst_log.jsonl, the JAX loop's record with the collapse
-    guard's rollback context)."""
+    guard's rollback context). Without `write` (a mesh's other ranks)
+    the snapshot is only cleared."""
     if astate.burst_log is None or not metrics:
         return astate
     if float(metrics.get("td_gate_fired", 0.0)) <= 0:
@@ -207,6 +254,8 @@ def drain_burst_log(work_dir: str, astate, metrics: Dict, step: int,
     bl = {k: v.cpu().numpy() for k, v in astate.burst_log.items()}
     if not int(bl["valid"]):
         return astate
+    if not write:
+        return _reset_burst_log(astate)
     ages = (int(bl["ep_counter"]) - bl["slot_ep"]).tolist()
     _append_jsonl(work_dir, {
         "type": "burst", "chunk_step": step,
@@ -239,11 +288,10 @@ def _profiler(device):
     return profile(activities=acts)
 
 
-def save_attribution_imagery(agent, astate, buffer, rstate, gen, cfg,
+def save_attribution_imagery(agent, astate, batch, gen, cfg,
                              work_dir: str, step: int):
-    """Image sets of 4 replay samples: the observations, the overlay view
-    s̃ and the attribution-augmented view s′."""
-    batch = buffer.sample_raw(rstate, gen, 4)
+    """Image sets of a 4-sample replay `batch`: the observations, the
+    overlay view s̃ and the attribution-augmented view s′."""
     obs = augment.random_crop(gen, batch.obs, cfg.image_crop_size).float()
     out_dir = os.path.join(work_dir, "output")
     save_attribution_images(agent, astate, obs, batch.action, out_dir, step)
@@ -290,33 +338,79 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run_training(cfg: Config, env_factory=make_env) -> Dict:
+class _Quiet:
+    """The logger of a mesh's other ranks: rank 0 writes the logs."""
+
+    def log(self, *args, **kw):
+        pass
+
+    def dump(self, *args, **kw):
+        pass
+
+
+_PORTABLE = ("work_dir", "episodes", "rollbacks", "final_metrics",
+             "timing", "resumed_at", "counters")
+
+
+def _train_rank(mesh: par.Mesh, cfg: Config, env_factory) -> Dict:
+    """One rank of a launched mesh run: its summary without the live
+    objects, with the digest of its agent state and its collective
+    counts."""
+    out = run_training(cfg, env_factory, mesh)
+    return {**{k: out[k] for k in _PORTABLE},
+            "digest": par.digest(out["agent_state"]),
+            "collectives": dict(mesh.stats)}
+
+
+def run_training(cfg: Config, env_factory=make_env,
+                 mesh: Optional[par.Mesh] = None) -> Dict:
     """Train per `cfg` on `cfg.device`, with the envs of `env_factory`
     (the CARLA twin's `make_carla_env` for train_carla). Returns summary stats — the
     collapse guard's rollbacks, and wall-clock seconds of the warm-up
     chunks (env only), the catch-up burst (updates only), the update
     chunks, each eval mode (seconds, env steps, kernel launches), the
     checkpoint saves and the host-spill exchanges — and the final agent,
-    env, replay, host spill (None without it) and generator state."""
+    env, replay, host spill (None without it) and generator state.
+
+    With `mesh_data_axis` N > 1 and no `mesh`: under torchrun this
+    process joins its group; else N ranks are started (`par.launch`) and
+    rank 0's summary comes back without the live objects, with every
+    rank's agent-state digest (`digests`) and collective counts. With a
+    `mesh` this process runs as its rank (the env and agent state are the
+    rank's)."""
     device = resolve_device(cfg.device)
-    check_supported(cfg)
+    check_supported(cfg, mesh)
+    if cfg.mesh_data_axis > 1 and mesh is None:
+        mesh = par.from_env()
+        if mesh is not None:
+            check_supported(cfg, mesh)  # torchrun's world is N ranks
+        else:
+            ranks = par.launch(_train_rank, par.default_devices(
+                cfg.device, cfg.mesh_data_axis), (cfg, env_factory))
+            return {**ranks[0], "digests": [r["digest"] for r in ranks],
+                    "collectives": [r["collectives"] for r in ranks]}
+    if mesh is not None:
+        device = mesh.device
+    main = mesh is None or mesh.is_main
     work_dir = work_dir_for(cfg)
     os.makedirs(work_dir, exist_ok=True)
-    write_info(cfg, work_dir)
-    L = Logger(work_dir)
+    if main:
+        write_info(cfg, work_dir)
+    L = Logger(work_dir) if main else _Quiet()
     model_dir = os.path.join(work_dir, "model")
     resume_dir = os.path.join(work_dir, "resume")
     video = VideoRecorder(
-        os.path.join(work_dir, "video") if cfg.save_video else None,
+        os.path.join(work_dir, "video") if cfg.save_video and main else None,
         height=cfg.eval_render_size, width=cfg.eval_render_size,
-        enabled=cfg.save_video)
+        enabled=cfg.save_video and main)
 
     env = make_run_env(cfg, device, env_factory=env_factory)
     test_envs = [(m, make_run_env(cfg, device, m, cfg.seed + 42,
                                   env_factory))
-                 for m in eval_modes(cfg)]
-    venv = VectorEnv(env, cfg.num_envs)
-    buffer = make_buffer(cfg, env, device)
+                 for m in (eval_modes(cfg) if main else [])]
+    world = 1 if mesh is None else mesh.world
+    venv = VectorEnv(env, cfg.num_envs // world)
+    buffer = make_buffer(cfg, env, device, mesh)
     spill = None
     if cfg.replay_spill == "host" and cfg.replay_capacity > device_capacity(
             cfg):
@@ -325,12 +419,29 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
     agent = make_agent((3 * cfg.frame_stack, cfg.image_crop_size,
                         cfg.image_crop_size), (env.action_size,), cfg,
                        device=device)
-    astate = agent.init_state(cfg.seed)
+    agent.mesh = mesh
+    astate = par.put_replicated(agent.init_state(cfg.seed), mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
-    states, obs = venv.reset(gen)
+
+    def env_gen():
+        """The generator of this rank's env resets."""
+        return gen if mesh is None else mesh.env_generator(gen)
+
+    def on_rank(tree):
+        """This rank's slice of a one-device env tree."""
+        if mesh is None:
+            return tree
+        return mesh.fork_generators(par.put_env_batch(tree, mesh,
+                                                      cfg.num_envs))
+
+    def one_device(tree):
+        """The one-device layout of this rank's env tree (a collective)."""
+        return tree if mesh is None else mesh.gather_envs(tree, cfg.num_envs)
+
+    states, obs = venv.reset(env_gen())
     rstate = buffer.add_reset(buffer.init(), obs)
-    trainer = FusedTrainer(agent, venv, buffer)
+    trainer = FusedTrainer(agent, venv, buffer, mesh)
     ep_len = env.max_episode_steps
 
     timing = {"random_s": 0.0, "random_steps": 0, "catch_up_s": 0.0,
@@ -355,10 +466,17 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
     fault_at = int(fault) if fault else None
 
     def restore_at(at):
-        """The loop state saved at resume/<at>, shaped like this run's."""
+        """The loop state saved at resume/<at>, shaped like this run's,
+        the env trees sliced to this rank and the agent state rank 0's."""
         replay = (states, obs, rstate) if cfg.checkpoint_replay else None
-        return ckpt.restore(resume_dir, at,
-                            loop_state(astate, gen, replay=replay))
+        out = ckpt.restore(resume_dir, at,
+                           loop_state(astate, gen, replay=replay))
+        if out is not None and mesh is not None:
+            par.put_replicated(out["astate"], mesh)
+            if cfg.checkpoint_replay:
+                out.update(zip(("states", "obs", "rstate"), on_rank(
+                    (out["states"], out["obs"], out["rstate"]))))
+        return out
 
     # ---- true resume: the loop state at the top of the while loop
     rewarm_until = -1  # no-update replay rewarm horizon after a resume
@@ -378,7 +496,8 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                 # updates, until the ring holds init_steps fresh steps
                 rewarm_until = step + max(cfg.init_steps, 0)
             astate = _reset_burst_log(astate)
-            print(f"Resumed from {resume_dir} at step {step}")
+            if main:
+                print(f"Resumed from {resume_dir} at step {step}")
 
     while step < cfg.train_steps:
         length = min(ep_len, cfg.train_steps - step)
@@ -400,7 +519,7 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                 timing["catch_up_s"] += time.time() - t0
                 timing["catch_up_updates"] += cfg.init_steps
                 t0 = time.time()
-            profiling = bool(cfg.profile_dir) and (
+            profiling = bool(cfg.profile_dir) and main and (
                 episode == cfg.init_steps // ep_len + 2)
             with (_profiler(device) if profiling
                   else contextlib.nullcontext()) as prof:
@@ -423,7 +542,10 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
             _sync(device)
             timing["spill_s"] += time.time() - t0
 
-        ep_reward = float(ep_rewards.mean())
+        ep_reward = ep_rewards.mean()
+        if mesh is not None:  # the mean over every rank's envs
+            ep_reward = mesh.reduce([ep_reward])[0][0]
+        ep_reward = float(ep_reward)
         L.log("train/episode_reward", ep_reward, step)
         L.log("train/episode", episode, step)
         L.log("train/duration", time.time() - start, step)
@@ -431,16 +553,18 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
             L.log(_METRIC_KEYS.get(k, f"train/{k}"), v, step)
             last_metrics[k] = float(v)
         astate = drain_burst_log(work_dir, astate, metrics, step, rollbacks,
-                                 last_rollback)
+                                 last_rollback, write=main)
         L.dump(step)
         start = time.time()
         episode += 1
 
         # reset all envs (lockstep episodes; DMC has no early termination)
-        states, obs = venv.reset(gen)
+        states, obs = venv.reset(env_gen())
         rstate = buffer.add_reset(rstate, obs)
         # ---- collapse guard: the reward level (a NaN episode counts as a
-        # collapse: 0), its EMA and best EMA; a cliff rolls back
+        # collapse: 0), its EMA and best EMA; a cliff rolls back. Every
+        # rank decides alike: the reward is the ranks' mean, and rank 0
+        # wrote the last save before it joined that mean's collective
         if fault_at is not None and step >= fault_at:
             ep_reward, fault_at = 0.0, None  # injected fault (tests)
         if not np.isfinite(ep_reward):
@@ -468,7 +592,7 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                 else:
                     # the ring holds collapse-era data: a fresh one, and a
                     # rewarm with the restored policy
-                    states, obs = venv.reset(gen)
+                    states, obs = venv.reset(env_gen())
                     rstate = buffer.add_reset(buffer.init(), obs)
                     rewarm_until = step + max(cfg.init_steps, 0)
                     if spill is not None:
@@ -477,55 +601,69 @@ def run_training(cfg: Config, env_factory=make_env) -> Dict:
                 astate = _reset_burst_log(astate)
                 last_rollback = {"to_step": last, "at_step": detect_step,
                                  "ring_ep_counter": rstate.ep_counter}
-                _append_jsonl(work_dir, {"type": "rollback",
-                                         "detected_reward": ep_reward,
-                                         "rollback": rollbacks,
-                                         **last_rollback})
-                print(f"Collapse guard: reward {ep_reward:.1f} < "
-                      f"{cfg.guard_collapse:.2f} x best {best_ema:.1f}; "
-                      f"rolled back to step {last} "
-                      f"({rollbacks}/{cfg.guard_max_rollbacks})")
+                if main:
+                    _append_jsonl(work_dir, {"type": "rollback",
+                                             "detected_reward": ep_reward,
+                                             "rollback": rollbacks,
+                                             **last_rollback})
+                    print(f"Collapse guard: reward {ep_reward:.1f} < "
+                          f"{cfg.guard_collapse:.2f} x best {best_ema:.1f}; "
+                          f"rolled back to step {last} "
+                          f"({rollbacks}/{cfg.guard_max_rollbacks})")
                 continue
 
-        # ---- periodic evaluation
+        # ---- periodic evaluation (rank 0; the others wait for the loop
+        # generator it advanced)
         if cfg.eval_mode is not None and step >= next_eval:
             next_eval += cfg.eval_freq * ((step - next_eval) // cfg.eval_freq + 1)
-            video.init()
-            for mode, ev_env, vid in [("train", env, video)] + [
-                    (m, te, None) for m, te in test_envs]:
-                before, t0 = raycast.launches, time.time()
-                rewards = evaluate(agent, astate, ev_env, cfg.eval_episodes,
-                                   gen, vid, f"{step}.mp4")
-                rec = timing["eval"].setdefault(
-                    mode, {"s": 0.0, "env_steps": 0, "launches": 0})
-                rec["s"] += time.time() - t0
-                rec["env_steps"] += cfg.eval_episodes * ev_env.max_episode_steps
-                rec["launches"] += raycast.launches - before
-                key = ("eval/episode_reward" if mode == "train"
-                       else f"eval/episode_reward_test_env_{mode}")
-                L.log(key, float(rewards.mean()), step)
-            L.dump(step)
+            if main:
+                video.init()
+                for mode, ev_env, vid in [("train", env, video)] + [
+                        (m, te, None) for m, te in test_envs]:
+                    before, t0 = raycast.launches, time.time()
+                    rewards = evaluate(agent, astate, ev_env,
+                                       cfg.eval_episodes, gen, vid,
+                                       f"{step}.mp4")
+                    rec = timing["eval"].setdefault(
+                        mode, {"s": 0.0, "env_steps": 0, "launches": 0})
+                    rec["s"] += time.time() - t0
+                    rec["env_steps"] += (cfg.eval_episodes
+                                         * ev_env.max_episode_steps)
+                    rec["launches"] += raycast.launches - before
+                    key = ("eval/episode_reward" if mode == "train"
+                           else f"eval/episode_reward_test_env_{mode}")
+                    L.log(key, float(rewards.mean()), step)
+                L.dump(step)
+            if mesh is not None:
+                mesh.replicate(gen)
 
         if cfg.algorithm == "sgsac" and step >= next_viz and caught_up:
             next_viz += VIZ_EVERY * ((step - next_viz) // VIZ_EVERY + 1)
-            save_attribution_imagery(agent, astate, buffer, rstate, gen, cfg,
-                                     work_dir, step)
+            batch = buffer.sample_raw(rstate, gen, 4)  # a gather on a mesh
+            if main:
+                save_attribution_imagery(agent, astate, batch, gen, cfg,
+                                         work_dir, step)
+            if mesh is not None:
+                mesh.replicate(gen)
 
-        # ---- periodic checkpoint
+        # ---- periodic checkpoint (the one-device layout; rank 0 writes)
         if step >= next_save:
             next_save += cfg.save_freq * ((step - next_save) // cfg.save_freq + 1)
             t0 = time.time()
-            ckpt.save(model_dir, weights_tree(astate), step)
-            replay = (states, obs, rstate) if cfg.checkpoint_replay else None
-            path = ckpt.save(resume_dir, loop_state(
-                astate, gen, episode, caught_up, next_eval, next_save,
-                next_viz, replay), step)
-            ckpt.record_health(resume_dir, step, ep_reward, reward_ema)
+            replay = (one_device((states, obs, rstate))
+                      if cfg.checkpoint_replay else None)
+            if main:
+                ckpt.save(model_dir, weights_tree(astate), step)
+                path = ckpt.save(resume_dir, loop_state(
+                    astate, gen, episode, caught_up, next_eval, next_save,
+                    next_viz, replay), step)
+                ckpt.record_health(resume_dir, step, ep_reward, reward_ema)
+                timing["resume_bytes"] = os.path.getsize(path)
             timing["save_s"] += time.time() - t0
             timing["saves"] += 1
-            timing["resume_bytes"] = os.path.getsize(path)
 
-    print("Completed training for", work_dir)
+    if main:
+        print("Completed training for", work_dir)
     return {"work_dir": work_dir, "episodes": episode,
             "rollbacks": rollbacks, "final_metrics": last_metrics,
             "timing": timing,

@@ -5,7 +5,7 @@
   * a tiny `run_training` on the CPU writes `train.log` with the JAX keys,
     and for sgsac `train/aux_loss` and the attribution image set;
   * the attribution imagery's grids and file names are the JAX package's;
-  * options the port does not carry yet raise NotImplementedError;
+  * the mesh layouts the JAX loop refuses raise before any work;
   * the CLI without a card and without `--device cpu` raises;
   * the port package (and chip_smoke.py) import no JAX and nothing of the
     JAX package.
@@ -227,19 +227,22 @@ def test_attribution_images_match_jax_grids_and_names(tmp_path):
 @pytest.mark.parametrize("kw,item", [
     ({"domain_name": "composer_demo", "task_name": "pendula"}, None),
     ({"replay_spill": "host"}, None),
-    ({"mesh_data_axis": 2}, "Multi-GPU"),
+    ({"mesh_data_axis": 2, "replay_spill": "host",
+      "replay_device_capacity": 2}, "replay_spill=host is single-device"),
     ({"domain_name": "composer_demo", "task_name": "pendula",
       "eval_mode": "video_hard"}, None),
+    ({"mesh_data_axis": 3}, "num_envs=2 must divide over mesh_data_axis=3"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
-    """The multi-GPU mesh is the one option the port still refuses, naming
-    its ROADMAP Queue 1 item, before any work starts; composer_demo (with
-    a video_hard eval too) and host spill pass the check, and their env
-    builds."""
+    """The mesh layouts the JAX loop asserts against raise before any work
+    starts: host spill with a host ring larger than the device ring under
+    a mesh, and a `num_envs` the mesh does not divide; composer_demo
+    (with a video_hard eval too) and host spill pass the check, and their
+    env builds."""
     cfg = Config(**{**TINY, **kw}, device="cpu",
                  log_dir=str(tmp_path)).finalize()
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             run_training(cfg)
         assert not os.path.exists(loop.work_dir_for(cfg))
         return
