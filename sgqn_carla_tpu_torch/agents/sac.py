@@ -40,7 +40,9 @@ while an N-rank update equals a one-rank update up to summation order.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -142,6 +144,19 @@ def _init_burst_log(batch_size: int, device):
     return {"valid": zi(), "step": zi(), "ep_counter": zi(),
             "env_i": zi(B), "ep_i": zi(B), "s": zi(B), "slot_ep": zi(B),
             "reward": zf(B), "td1": zf(B), "td2": zf(B)}
+
+
+_GLOBAL_RNG = threading.Lock()
+
+
+@contextlib.contextmanager
+def seeded(seed: int):
+    """The global CPU RNG seeded with `seed` inside (module initialisers
+    draw from it), restored after, one thread at a time (a mesh's ranks
+    may be threads of one process that build their agents together)."""
+    with _GLOBAL_RNG, torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        yield
 
 
 def _params(*modules) -> List[torch.Tensor]:
@@ -259,8 +274,7 @@ class SAC:
     def init_state(self, seed: int) -> AgentState:
         """Weights (initialised on the CPU from `seed`, without touching
         the global RNG), targets, optimizers and the gate state."""
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        with seeded(seed):
             params = self.make_modules()
         for p in params.parameters():
             p.requires_grad_(False)

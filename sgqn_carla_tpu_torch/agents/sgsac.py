@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from sgqn_carla_tpu_torch.agents import nets
 from sgqn_carla_tpu_torch.agents.sac import (
-    SAC, Adam, AgentState, _params, overlay_pool_on, value_and_grads)
+    SAC, Adam, AgentState, _params, overlay_pool_on, seeded, value_and_grads)
 from sgqn_carla_tpu_torch.data.replay import Batch
 from sgqn_carla_tpu_torch.ops import augment
 from sgqn_carla_tpu_torch.ops.guided_backprop import (
@@ -73,8 +73,7 @@ class SGSAC(SAC):
     # ------------------------------------------------------------------ init
     def init_aux(self, state: AgentState, seed: int) -> AgentState:
         cfg = self.cfg
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        with seeded(seed):
             decoder = nets.AttributionDecoder(
                 self.action_dim, cfg.projection_dim, spatial=self.spatial,
                 out_channels=self.obs_shape[0], out_size=self.obs_shape[-1],

@@ -53,7 +53,8 @@ import torch.nn.functional as F
 
 from sgqn_carla_tpu_torch.agents import nets
 from sgqn_carla_tpu_torch.agents.sac import (
-    SAC, Adam, AgentState, _params, ema_, overlay_pool_on, value_and_grads)
+    SAC, Adam, AgentState, _params, ema_, overlay_pool_on, seeded,
+    value_and_grads)
 from sgqn_carla_tpu_torch.data.replay import Batch
 from sgqn_carla_tpu_torch.ops import augment
 
@@ -133,8 +134,7 @@ class CURL(_AuxSAC):
     name = "curl"
 
     def init_aux(self, state: AgentState, seed: int) -> AgentState:
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        with seeded(seed):
             head = nets.CURLHead(self.cfg.projection_dim)
         state.aux_params = _frozen({"W": head}, self.device)
         state.aux_opt = self.aux_tx.init(self._aux_tree(state.params,
@@ -190,8 +190,7 @@ class PAD(_AuxSAC):
     def init_aux(self, state: AgentState, seed: int) -> AgentState:
         cfg = self.cfg
         fd = state.params["trunk"].feature_dim
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        with seeded(seed):
             proj = nets.RLProjection(fd, cfg.projection_dim)
             mlp = nets.InverseDynamics(cfg.projection_dim, self.action_dim,
                                        cfg.hidden_dim)
@@ -274,8 +273,7 @@ class SODA(_AuxSAC):
     def init_aux(self, state: AgentState, seed: int) -> AgentState:
         P = self.cfg.projection_dim
         trunk = state.params["trunk"]
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        with seeded(seed):
             proj = nets.SODAMLP(trunk.feature_dim, P, P)
             pred = nets.SODAMLP(P, P, P)
         aux = _frozen({"proj": proj, "pred": pred}, self.device)

@@ -21,15 +21,19 @@ laid out through the launcher's API: `launch(run_passes, ["cuda:0"] * N,
 
 The passes are functions of a rank's `Mesh`, shared by the tests and
 `chip_smoke.py`, which run them at other sizes and compare what they
-return with one-process runs.
+return with one-process runs. `thread_launch` runs them on ranks that are
+threads of one process (`ThreadMesh`: the collectives meet at a barrier,
+no torch.distributed): the reference at the ranks' own batch shapes.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +41,74 @@ import torch
 from sgqn_carla_tpu_torch.parallel.mesh import (
     Mesh, default_devices, digest, launch, map_tensors, put_env_batch,
     put_replicated)
+
+
+@dataclasses.dataclass
+class ThreadMesh(Mesh):
+    """Rank `rank` of ranks that are threads of this process on one
+    device: `all_reduce_` sums the ranks' buffers in rank order and
+    `broadcast_` copies rank `src`'s, both between two barriers. Each rank
+    still computes its own rows at its own batch shape, as a spawned rank
+    does; only torch.distributed is left out."""
+
+    hub: Any = None  # (threading.Barrier, one buffer slot per rank)
+
+    def all_reduce_(self, buf: torch.Tensor) -> torch.Tensor:
+        def op(b):
+            barrier, bufs = self.hub
+            bufs[self.rank] = b
+            barrier.wait()
+            total = bufs[0].clone()
+            for other in bufs[1:]:
+                total += other
+            barrier.wait()  # every rank has read before any rank writes
+            b.copy_(total)
+
+        self._run(op, buf)
+        return buf
+
+    def broadcast_(self, buf: torch.Tensor, src: int = 0) -> torch.Tensor:
+        def op(b):
+            barrier, bufs = self.hub
+            bufs[self.rank] = b
+            barrier.wait()
+            if self.rank != src:
+                b.copy_(bufs[src])
+            barrier.wait()
+
+        self._run(op, buf)
+        return buf
+
+
+def thread_launch(fn: Callable, devices: Sequence,
+                  args: tuple = ()) -> List[Any]:
+    """`launch`'s counterpart on threads of this process: fn(mesh, *args)
+    on len(devices) `ThreadMesh` ranks of one device; the results in rank
+    order. A rank that raises breaks the barrier, so none is left
+    waiting, and this raises its error."""
+    devs = {torch.device(d) for d in devices}
+    if len(devs) != 1:
+        raise ValueError(f"thread ranks share one device, got {devices}")
+    device, world = devs.pop(), len(devices)
+    hub = (threading.Barrier(world), [None] * world)
+    out, errors = [None] * world, []
+
+    def run(rank):
+        try:
+            out[rank] = fn(ThreadMesh(world=world, rank=rank, device=device,
+                                      backend="threads", hub=hub), *args)
+        except BaseException as e:  # handed to the caller
+            errors.append(e)
+            hub[0].abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
 
 
 def _ok(mesh: Optional[Mesh], msg: str):
@@ -377,13 +449,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("n", type=int, help="ranks on the data axis")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--tiny", action="store_true",
-                   help="run the tiny pass only")
     args = p.parse_args(argv)
     devices = default_devices(args.device, args.n)
-    passes = [("tiny", {})]
-    if not args.tiny:
-        passes += [("flagship-update", {}), ("flagship-env", {})]
+    passes = [("tiny", {}), ("flagship-update", {}), ("flagship-env", {})]
     t0 = time.time()
     launch(run_passes, devices, (passes,))
     print(f"dryrun OK on {args.n} ranks: {len(passes)} passes in "

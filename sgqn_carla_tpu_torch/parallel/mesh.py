@@ -24,7 +24,7 @@ gloo carries for CUDA tensors as well as for CPU tensors:
     owns into a zero-filled buffer and the buffers are summed as bytes
     (uint8), which is exact where at most one rank holds a non-zero byte;
   * `gather_envs`: a tree of per-env tensors back to the one-device
-    layout (checkpoints), through `sum_bytes`;
+    layout (checkpoints), one uint8 bucket of zero-filled rows;
   * `replicate`: rank 0's tensors and generator states to every rank,
     one bucket.
 
@@ -38,7 +38,9 @@ cannot be forked) on an explicit device list: one distinct card per rank
 uses NCCL, CPU ranks or ranks that share a card use gloo (NCCL refuses two
 ranks on one card). It prints the backend and the devices, gives the
 process group a timeout, and when a rank fails it stops every other rank
-and raises. `from_env` joins ranks started by `torchrun` instead.
+and raises. `from_env` joins ranks started by `torchrun` instead. While
+rank 0 works alone (the evaluation), it `beat`s and the other ranks wait
+in `wait_for_main`: the timeout bounds each gap between beats.
 """
 
 from __future__ import annotations
@@ -175,10 +177,13 @@ def _pack(parts: List[torch.Tensor]) -> Tuple[torch.Tensor, List[int]]:
     return torch.cat(out), offs
 
 
-def _unpack(bucket: torch.Tensor, off: int, like: torch.Tensor):
-    """The tensor shaped and typed like `like` at byte `off` of `bucket`."""
-    k = like.numel() * like.element_size()
-    return bucket[off:off + k].view(like.dtype).reshape(like.shape)
+def _unpack(bucket: torch.Tensor, off: int, like: torch.Tensor,
+            shape=None):
+    """The tensor typed like `like`, shaped like it (or `shape`), at byte
+    `off` of `bucket`."""
+    shape = like.shape if shape is None else shape
+    k = shape.numel() * like.element_size()
+    return bucket[off:off + k].view(like.dtype).reshape(shape)
 
 
 def _seed_mix(seed: int, rank: int) -> int:
@@ -316,6 +321,19 @@ class Mesh:
             g.set_state(_unpack(bucket, o, s).cpu().clone())
         return tree
 
+    def beat(self, done: bool = False):
+        """Rank 0, while it works alone (the evaluation): tell the ranks
+        in `wait_for_main` that it is still at work, or with `done` that
+        it has finished. One broadcast of one int per beat, so the group's
+        timeout bounds the time between two beats, not the whole work."""
+        self.broadcast_(torch.tensor([int(done)], device=self.device))
+
+    def wait_for_main(self):
+        """The other ranks' side of `beat`: return once rank 0 is done."""
+        flag = torch.zeros(1, dtype=torch.int64, device=self.device)
+        while not int(self.broadcast_(flag)):
+            pass
+
     def env_generator(self, gen: torch.Generator) -> torch.Generator:
         """The generator this rank's env resets draw from: `gen` itself on
         one rank; else a generator seeded from one draw of the replicated
@@ -350,20 +368,39 @@ class Mesh:
 
     def gather_envs(self, tree, num_envs: int):
         """The one-device layout of a per-env tree (env states, obs, the
-        replay state): every tensor whose leading axis is this rank's env
-        count becomes the (num_envs, ...) global tensor on every rank,
-        one collective per tensor; scalars and generators stay this
-        rank's."""
+        replay state), on every rank: each tensor of such a tree holds one
+        row per env (`envs.base.env_slice`'s convention; a tensor whose
+        leading axis is not this rank's env count raises), and becomes the
+        (num_envs, ...) global tensor, all through one `all_reduce` of one
+        byte bucket into which each rank writes its rows. Scalars and
+        generators stay this rank's."""
         lo, hi = self.env_range(num_envs)
+        per_env = []
 
-        def gather(x):
-            if x.dim() == 0 or x.shape[0] != hi - lo:
-                return x
-            full = x.new_zeros((num_envs,) + x.shape[1:])
-            full[lo:hi] = x
-            return self.sum_bytes([full])[0]
+        def visit(x):
+            if x.dim():
+                if x.shape[0] != hi - lo:
+                    raise ValueError(
+                        f"gather_envs: a tensor of shape {tuple(x.shape)} "
+                        f"in a tree of {hi - lo} envs per rank")
+                per_env.append(x)
+            return x
 
-        return map_tensors(gather, tree)
+        map_tensors(visit, tree)
+        offs, off = [], 0
+        for x in per_env:
+            offs.append(off)
+            off += -(-x.numel() * x.element_size() * self.world // 8) * 8
+        bucket = torch.zeros(off, dtype=torch.uint8, device=self.device)
+        for x, o in zip(per_env, offs):
+            k = x.numel() * x.element_size()
+            bucket[o + self.rank * k:o + (self.rank + 1) * k] = _as_bytes(
+                x.to(self.device))
+        self.all_reduce_(bucket)
+        it = iter(offs)
+        return map_tensors(lambda x: _unpack(
+            bucket, next(it), x, (num_envs,) + x.shape[1:]).to(
+                x.device, copy=True) if x.dim() else x, tree)
 
 
 def put_env_batch(tree, mesh: Optional[Mesh], num_envs: int):
@@ -443,10 +480,11 @@ def _rank_main(rank: int, devices: List[str], backend: str, port: int,
 
 
 def launch(fn: Callable, devices: Sequence, args: tuple = (),
-           timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
+           timeout_s: Optional[float] = None) -> List[Any]:
     """Run fn(mesh, *args) on len(devices) ranks, rank r on devices[r], in
-    processes started with `spawn` (one rank runs in this process, in a
-    group of its own); returns the ranks' results in rank order. `fn` and `args` must pickle (a module-level function). The
+    processes started with `spawn`; returns the ranks' results in rank
+    order. `fn` and `args` must pickle (a module-level function). The
+    group's timeout is `timeout_s` (DEFAULT_TIMEOUT_S when None). The
     ranks take this process's TF32 switches. If a rank raises or dies,
     every other rank is stopped and this raises with its traceback."""
     import multiprocessing as mp
@@ -454,18 +492,9 @@ def launch(fn: Callable, devices: Sequence, args: tuple = (),
     devices = [str(_device(d)) for d in devices]
     world = len(devices)
     backend = backend_for(devices)
+    timeout_s = DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s
     print(f"mesh: {world} ranks over {backend} on {', '.join(devices)}",
           flush=True)
-    if world == 1:
-        device = _device(devices[0])
-        _init(backend, device, timeout_s,
-              init_method=f"tcp://localhost:{_free_port()}", world_size=1,
-              rank=0)
-        try:
-            return [fn(Mesh(world=1, rank=0, device=device,
-                            backend=backend), *args)]
-        finally:
-            dist.destroy_process_group()
     threads = max(1, torch.get_num_threads() // world)
     ctx = mp.get_context("spawn")
     queue = ctx.SimpleQueue()
@@ -506,23 +535,29 @@ def launch(fn: Callable, devices: Sequence, args: tuple = (),
     return [results[r] for r in range(world)]
 
 
-def from_env(timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[Mesh]:
+def from_env(device, timeout_s: Optional[float] = None) -> Optional[Mesh]:
     """Join the group `torchrun` describes in the environment (RANK,
-    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): rank r on card
-    LOCAL_RANK over NCCL when cards are visible, else on the CPU over
-    gloo. None outside torchrun."""
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) on the caller's
+    `device`: rank r on card LOCAL_RANK over NCCL for a `cuda` device
+    (raises when that card does not exist), on the CPU over gloo for a
+    `cpu` device. None outside torchrun."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return None
     world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
-    if torch.cuda.is_available():
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-        backend = "nccl"
+    if torch.device(device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        have = torch.cuda.device_count()
+        if local >= have:
+            raise ValueError(f"LOCAL_RANK={local} has no card ({have} "
+                             "visible)")
+        device, backend = torch.device("cuda", local), "nccl"
     else:
         device, backend = torch.device("cpu"), "gloo"
     if not dist.is_initialized():
-        _init(backend, device, timeout_s, init_method="env://",
-              world_size=world, rank=rank)
-        if rank == 0:
-            print(f"mesh: {world} ranks over {backend} (torchrun)",
-                  flush=True)
+        _init(backend, device,
+              DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s,
+              init_method="env://", world_size=world, rank=rank)
+    if rank == 0:
+        print(f"mesh: {world} ranks over {backend} on {device.type} "
+              "(torchrun)", flush=True)
     return Mesh(world=world, rank=rank, device=device, backend=backend)

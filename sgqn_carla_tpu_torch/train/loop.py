@@ -48,17 +48,21 @@ ring drops the host window too. The host ring is not checkpointed.
 The multi-GPU mesh (`mesh_data_axis = N > 1`, `parallel/mesh.py`): the
 JAX loop's data parallelism over the env batch, one process per rank.
 `run_training` starts N ranks on cuda:0 .. cuda:N-1 (N CPU ranks over
-gloo with `device cpu`), joins them under `torchrun`, or runs as one rank
-of a caller's `mesh`. Each rank steps `num_envs / N` envs and holds their
-slice of the ring; the parameters, optimizer states and the loop
-generator are the same on every rank (rank 0's broadcast at the start and
-after every restore, then kept equal by the averaged updates). Each
+gloo with `device cpu`), joins its group under `torchrun` (on card
+LOCAL_RANK, or the CPU with `device cpu`; the group must have N ranks),
+or runs as one rank of a caller's `mesh`. Each rank steps `num_envs / N`
+envs and holds their slice of the ring; the parameters, optimizer states
+and the loop generator are the same on every rank (rank 0's broadcast at
+the start and after every restore, then kept equal by the averaged
+updates). Each
 rank's env resets draw from a generator seeded from one draw of the loop
 generator and its rank (`Mesh.env_generator`): a deliberate divergence
 from JAX, whose sharded run draws the one-device env stream. Rank 0 alone
 writes info.log, train.log, eval.log, burst_log.jsonl, the attribution
 imagery, the video and the profile trace, and runs the evaluation while
-the others wait; the loop generator it advanced is then broadcast. The
+the others wait (rank 0 beats once per eval env step, so the group's
+timeout bounds a step, not the evaluation); the loop generator it
+advanced is then broadcast. The
 chunk's episode reward is averaged over the ranks before the collapse
 guard, so every rank takes the same rollback. Checkpoints hold the
 one-device layout: with `checkpoint_replay` the env states, obs and ring
@@ -132,9 +136,13 @@ def check_supported(cfg: Config, mesh: Optional[par.Mesh] = None):
     """Raise, before any work, for the mesh layouts the loop refuses (the
     JAX loop's asserts): `num_envs` or `batch_size` not divisible by
     `mesh_data_axis`, host spill with a host ring larger than the device
-    ring, and fewer cards than ranks for a `cuda` run that is not given
-    its `mesh` or started by torchrun."""
+    ring, fewer cards than ranks for a `cuda` run that is not given
+    its `mesh` or started by torchrun, and a `mesh` (or torchrun's group)
+    of another size than `mesh_data_axis`."""
     n = cfg.mesh_data_axis
+    if mesh is not None and mesh.world != n:
+        raise ValueError(f"mesh of {mesh.world} ranks for "
+                         f"mesh_data_axis={n}")
     if n <= 1:
         return
     par.MeshSpec(data=n)
@@ -147,11 +155,7 @@ def check_supported(cfg: Config, mesh: Optional[par.Mesh] = None):
         raise ValueError(
             "replay_spill=host is single-device (the chunk-boundary "
             "exchange would need per-rank transfers under a mesh)")
-    if mesh is not None:
-        if mesh.world != n:
-            raise ValueError(f"mesh of {mesh.world} ranks for "
-                             f"mesh_data_axis={n}")
-    elif "WORLD_SIZE" not in os.environ:
+    if mesh is None and "WORLD_SIZE" not in os.environ:
         par.default_devices(cfg.device, n)
 
 
@@ -310,12 +314,13 @@ def save_attribution_imagery(agent, astate, batch, gen, cfg,
 
 def evaluate(agent, astate, env, num_episodes: int, gen: torch.Generator,
              video: Optional[VideoRecorder] = None,
-             video_name: str = "") -> np.ndarray:
+             video_name: str = "", beat=None) -> np.ndarray:
     """`num_episodes` episodes in parallel (one env per episode) with the
     deterministic policy. Returns the per-episode rewards. The rollout is
     a loop of device work with no host read inside (the recorded 448-px
     frames of env 0 stay on the device too); the returns and frames come
-    to the host once, at the end."""
+    to the host once, at the end. `beat()` is called after every env step
+    (`Mesh.beat` on a mesh's rank 0)."""
     venv = VectorEnv(env, num_episodes)
     record = video is not None and video.enabled
     states, obs = venv.reset(gen)
@@ -326,6 +331,8 @@ def evaluate(agent, astate, env, num_episodes: int, gen: torch.Generator,
         total = res.reward if total is None else total + res.reward
         if record:
             frames.append(env.render_eval(states, video.height))
+        if beat is not None:
+            beat()
     if record:
         video.record_frames(torch.stack(frames))
     if video is not None:
@@ -372,19 +379,20 @@ def run_training(cfg: Config, env_factory=make_env,
     checkpoint saves and the host-spill exchanges — and the final agent,
     env, replay, host spill (None without it) and generator state.
 
-    With `mesh_data_axis` N > 1 and no `mesh`: under torchrun this
-    process joins its group; else N ranks are started (`par.launch`) and
+    With no `mesh`: under torchrun this process joins its group (of
+    `mesh_data_axis` ranks); else with `mesh_data_axis` N > 1, N ranks are
+    started (`par.launch`) and
     rank 0's summary comes back without the live objects, with every
     rank's agent-state digest (`digests`) and collective counts. With a
     `mesh` this process runs as its rank (the env and agent state are the
     rank's)."""
     device = resolve_device(cfg.device)
     check_supported(cfg, mesh)
-    if cfg.mesh_data_axis > 1 and mesh is None:
-        mesh = par.from_env()
+    if mesh is None:
+        mesh = par.from_env(device)  # None outside torchrun
         if mesh is not None:
             check_supported(cfg, mesh)  # torchrun's world is N ranks
-        else:
+        elif cfg.mesh_data_axis > 1:
             ranks = par.launch(_train_rank, par.default_devices(
                 cfg.device, cfg.mesh_data_axis), (cfg, env_factory))
             return {**ranks[0], "digests": [r["digest"] for r in ranks],
@@ -612,10 +620,12 @@ def run_training(cfg: Config, env_factory=make_env,
                           f"({rollbacks}/{cfg.guard_max_rollbacks})")
                 continue
 
-        # ---- periodic evaluation (rank 0; the others wait for the loop
-        # generator it advanced)
+        # ---- periodic evaluation (rank 0, beating once per env step; the
+        # others wait for it to be done, then for the loop generator it
+        # advanced)
         if cfg.eval_mode is not None and step >= next_eval:
             next_eval += cfg.eval_freq * ((step - next_eval) // cfg.eval_freq + 1)
+            beat = None if mesh is None else mesh.beat
             if main:
                 video.init()
                 for mode, ev_env, vid in [("train", env, video)] + [
@@ -623,7 +633,7 @@ def run_training(cfg: Config, env_factory=make_env,
                     before, t0 = raycast.launches, time.time()
                     rewards = evaluate(agent, astate, ev_env,
                                        cfg.eval_episodes, gen, vid,
-                                       f"{step}.mp4")
+                                       f"{step}.mp4", beat)
                     rec = timing["eval"].setdefault(
                         mode, {"s": 0.0, "env_steps": 0, "launches": 0})
                     rec["s"] += time.time() - t0
@@ -635,6 +645,10 @@ def run_training(cfg: Config, env_factory=make_env,
                     L.log(key, float(rewards.mean()), step)
                 L.dump(step)
             if mesh is not None:
+                if main:
+                    mesh.beat(done=True)
+                else:
+                    mesh.wait_for_main()
                 mesh.replicate(gen)
 
         if cfg.algorithm == "sgsac" and step >= next_viz and caught_up:

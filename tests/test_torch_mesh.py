@@ -2,7 +2,11 @@
 
   * no spawn: env ranges, `put_env_batch`'s predicate, the backend chosen
     from a device list, the reserved model axis, the refusals made before
-    any work (too few cards);
+    any work (too few cards), `from_env`'s device choice (torchrun's
+    environment for a world of 1); on 2 ranks that are threads of this
+    process (`dryrun.ThreadMesh`): `gather_envs` (exactly the per-env
+    tensors, in one collective) and rank 0's `beat` against the others'
+    `wait_for_main`;
   * one spawn of 2 gloo CPU ranks for the whole file (a module fixture
     hands its results to the cases): the padded replay gather against the
     one-process sampler bit for bit; on host-filled rings (the JAX
@@ -12,9 +16,11 @@
     `test_torch_train.py`); the sgsac update of the 2 ranks with the
     draws and weights of one JAX sgsac update under a 2-device virtual
     CPU mesh (the ring sharded as `put_env_batch` shards it), at
-    `test_torch_train.py`'s tolerances. The file compiles one JAX
-    program.
+    `test_torch_train.py`'s tolerances; the thread ranks' sgsac updates
+    against the spawned ranks'. The file compiles one JAX program.
 """
+
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -101,8 +107,10 @@ def results():
     ranks = par.launch(dryrun.run_passes, ["cpu", "cpu"], (passes,),
                        timeout_s=300)
     one = [dryrun.update_pass(None, **kw) for _, kw in passes[1:-1]]
+    threads = dryrun.thread_launch(dryrun.update_pass, ["cpu", "cpu"], (
+        _cfg("sgsac"), 2, 0, A, T, "cpu", None, None, 0, True, rings[84]))
     return {"ranks": [r["passes"] for r in ranks], "one": one,
-            "jax": (jnew, jm)}
+            "jax": (jnew, jm), "threads": threads}
 
 
 # SODA's aux gradients that are zero by construction: the last trunk conv's
@@ -247,3 +255,97 @@ def test_sgsac_two_ranks_match_jax_mesh_update(results):
     cfg = _cfg("sgsac")
     _adam_rule(r0["params"]["params"], params_from_jax(jnew),
                cfg.critic_lr + cfg.aux_lr, spare=1)
+
+
+def _torchrun_env(monkeypatch, world=1, rank=0, local_rank=0):
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=local_rank,
+                     MASTER_ADDR="localhost", MASTER_PORT=port).items():
+        monkeypatch.setenv(k, str(v))
+
+
+def test_from_env_takes_the_callers_device(monkeypatch, capsys):
+    """Under torchrun's environment `from_env` joins on the caller's
+    device: the CPU over gloo for `cpu` (cards visible or not), card
+    LOCAL_RANK for `cuda`, which raises when that card does not exist;
+    outside torchrun it returns None."""
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert par.from_env("cpu") is None
+    _torchrun_env(monkeypatch, local_rank=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="LOCAL_RANK=1 has no card"):
+        par.from_env(torch.device("cuda"))
+    assert not torch.distributed.is_initialized()
+    mesh = par.from_env(torch.device("cpu"), timeout_s=60)
+    try:
+        assert (mesh.world, mesh.rank, mesh.device.type, mesh.backend) == (
+            1, 0, "cpu", "gloo")
+        assert torch.distributed.get_backend() == "gloo"
+        assert "mesh: 1 ranks over gloo on cpu (torchrun)" in (
+            capsys.readouterr().out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_gather_envs_takes_exactly_the_per_env_tensors():
+    """2 ranks of one env each: every per-env tensor (leading axis 1, the
+    size a shared leaf could also have) becomes the 2-env global tensor
+    in one collective; scalars and generators stay the rank's; a tensor
+    that is not per-env raises on every rank."""
+    def gather(mesh):
+        r = mesh.rank
+        tree = {"obs": torch.full((1, 3), r + 1, dtype=torch.uint8),
+                "q": torch.full((1, 2), 0.5 * r), "t": torch.tensor(r),
+                "gen": torch.Generator()}
+        out = mesh.gather_envs(tree, 2)
+        return out, tree, dict(mesh.stats)
+
+    for out, tree, stats in dryrun.thread_launch(gather, ["cpu", "cpu"]):
+        assert torch.equal(out["obs"], torch.tensor([[1] * 3, [2] * 3],
+                                                    dtype=torch.uint8))
+        assert torch.equal(out["q"], torch.tensor([[0.0, 0.0], [0.5, 0.5]]))
+        assert out["t"] is tree["t"] and out["gen"] is tree["gen"]
+        assert stats["calls"] == 1
+
+    def shared(mesh):
+        return mesh.gather_envs({"obs": torch.zeros(1, 3),
+                                 "palette": torch.zeros(3, 4)}, 2)
+
+    with pytest.raises(ValueError, match=r"shape \(3, 4\) in a tree of 1"):
+        dryrun.thread_launch(shared, ["cpu", "cpu"])
+
+
+def test_beat_releases_the_waiting_ranks():
+    """Rank 0 beats while it works alone, then says it is done; the other
+    ranks wait through every beat and return with it."""
+    def work(mesh):
+        if mesh.is_main:
+            for _ in range(3):
+                mesh.beat()
+            mesh.beat(done=True)
+        else:
+            mesh.wait_for_main()
+        return mesh.stats["calls"]
+
+    assert dryrun.thread_launch(work, ["cpu"] * 3) == [4, 4, 4]
+
+
+def test_thread_ranks_match_the_spawned_ranks(results):
+    """The sgsac updates of 2 thread ranks (each its own rows at its own
+    batch shape, collectives without torch.distributed) against the 2
+    spawned gloo ranks: the thread ranks bit-identical, the first
+    update's metrics within rtol 1e-5, weights under the Adam rule."""
+    t0, t1 = results["threads"]
+    g0 = results["ranks"][0][1 + ALGOS.index("sgsac")]
+    assert t0["digest"] == t1["digest"]
+    for k, v in g0["metrics"][0].items():
+        np.testing.assert_allclose(t0["metrics"][0][k], v, rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    cfg = _cfg("sgsac")
+    for key in ("params", "aux_params"):
+        _adam_rule(t0["params"][key], g0["params"][key],
+                   2 * (cfg.critic_lr + cfg.aux_lr), spare=1)
