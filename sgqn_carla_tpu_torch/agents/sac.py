@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from sgqn_carla_tpu_torch.agents import nets
 from sgqn_carla_tpu_torch.core.config import Config
+from sgqn_carla_tpu_torch.core.trace import span
 from sgqn_carla_tpu_torch.data.replay import Batch, ReplayBuffer, ReplayState
 from sgqn_carla_tpu_torch.ops import augment
 
@@ -90,31 +91,32 @@ class Adam:
 
     @torch.no_grad()
     def step(self, params, grads, st: AdamState, keep=None, active=None):
-        b1, b2 = self.b1, self.b2
-        st.count += 1.0 if active is None else active
-        bc1 = 1.0 - torch.pow(b1, st.count)
-        bc2 = 1.0 - torch.pow(b2, st.count)
-        on = None if active is None else active > 0
-        for p, g, m, v in zip(params, grads, st.mu, st.nu):
-            if keep is not None:
-                g = g * keep
-            m2 = (1 - b1) * g + b1 * m
-            v2 = (1 - b2) * (g * g) + b2 * v
-            u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            u = -self.lr * u
-            if keep is not None:
-                m2 = keep * m2 + (1 - keep) * m
-                v2 = keep * v2 + (1 - keep) * v
-                u = u * keep
-            if on is not None:
-                m2 = torch.where(on, m2, m)
-                v2 = torch.where(on, v2, v)
-                u = torch.where(on, u, torch.zeros_like(u))
-            m.copy_(m2)
-            v.copy_(v2)
-            p.add_(u)
+        with span("sac.adam"):
+            b1, b2 = self.b1, self.b2
+            st.count += 1.0 if active is None else active
+            bc1 = 1.0 - torch.pow(b1, st.count)
+            bc2 = 1.0 - torch.pow(b2, st.count)
+            on = None if active is None else active > 0
+            for p, g, m, v in zip(params, grads, st.mu, st.nu):
+                if keep is not None:
+                    g = g * keep
+                m2 = (1 - b1) * g + b1 * m
+                v2 = (1 - b2) * (g * g) + b2 * v
+                u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                u = -self.lr * u
+                if keep is not None:
+                    m2 = keep * m2 + (1 - keep) * m
+                    v2 = keep * v2 + (1 - keep) * v
+                    u = u * keep
+                if on is not None:
+                    m2 = torch.where(on, m2, m)
+                    v2 = torch.where(on, v2, v)
+                    u = torch.where(on, u, torch.zeros_like(u))
+                m.copy_(m2)
+                v.copy_(v2)
+                p.add_(u)
 
 
 # ------------------------------------------------------------ agent state
@@ -524,50 +526,61 @@ class SAC:
         the draws, injected or not, have the global batch's shapes."""
         draws = draws or {}
         B, A = self.cfg.batch_size, self.action_dim
-        full = self.sample_batch(buffer, rstate, state, draws)
-        batch = self._local(full)
-        ctx = self.update_context(state, batch, draws)
-        t_noise = draws.get("target_noise")
-        if t_noise is None:
-            t_noise = self._noise(state, (B, A))
-        state, c_metrics = self.update_critic(state, batch,
-                                              self._rows(t_noise), ctx,
-                                              draws)
-        td1, td2 = c_metrics.pop("_td1"), c_metrics.pop("_td2")
-        if state.burst_log is not None and td1.shape[0] == B:
-            # snapshot the FIRST gate-flagged minibatch since the loop
-            # last drained it (replay provenance + per-sample TD errors)
-            bl = state.burst_log
-            fresh = (c_metrics["td_gate_fired"] > 0) & (bl["valid"] == 0)
-            env_i, ep_i = full.idx[:, 0], full.idx[:, 1]
-            i32 = lambda x: x.to(torch.int32)
-            rec = {"valid": torch.ones_like(bl["valid"]),
-                   "step": torch.full_like(bl["step"], state.step),
-                   "ep_counter": torch.full_like(bl["ep_counter"],
-                                                 rstate.ep_counter),
-                   "env_i": i32(env_i), "ep_i": i32(ep_i),
-                   "s": i32(full.idx[:, 2]),
-                   "slot_ep": buffer.slot_ep_of(rstate, env_i, ep_i),
-                   "reward": full.reward.reshape(-1), "td1": td1, "td2": td2}
-            state.burst_log = {k: torch.where(fresh, rec[k], bl[k])
-                               for k in bl}
+        with span("sac.update"):
+            with span("sac.sample"):
+                full = self.sample_batch(buffer, rstate, state, draws)
+            batch = self._local(full)
+            with span("sac.context"):
+                ctx = self.update_context(state, batch, draws)
+            t_noise = draws.get("target_noise")
+            if t_noise is None:
+                t_noise = self._noise(state, (B, A))
+            with span("sac.critic"):
+                state, c_metrics = self.update_critic(
+                    state, batch, self._rows(t_noise), ctx, draws)
+            td1, td2 = c_metrics.pop("_td1"), c_metrics.pop("_td2")
+            if state.step % self.actor_update_freq == 0:
+                a_noise = draws.get("actor_noise")
+                if a_noise is None:
+                    a_noise = self._noise(state, (B, A))
+                active = (None if state.gate_cooldown is None
+                          else (state.gate_cooldown == 0).float())
+                with span("sac.actor"):
+                    state, a_metrics = self.update_actor_and_alpha(
+                        state, batch, self._rows(a_noise), active)
+            else:
+                zero = torch.zeros((), device=self.device)
+                a_metrics = {"actor_loss": zero, "alpha_loss": zero,
+                             "alpha_value": torch.exp(state.log_alpha)}
+            if state.step % self.critic_target_update_freq == 0:
+                state = self.soft_update_targets(state)
+            with span("sac.aux"):
+                state, x_metrics = self.update_aux(state, batch, buffer,
+                                                   rstate, draws, ctx)
+            with span("sac.diag"):
+                if state.burst_log is not None and td1.shape[0] == B:
+                    self._snapshot_burst(state, rstate, buffer, full,
+                                         c_metrics, td1, td2)
+                lag = self._target_lag(state)
+            state.step += 1
+            return state, {**c_metrics, **a_metrics, **x_metrics,
+                           "target_lag": lag}
 
-        if state.step % self.actor_update_freq == 0:
-            a_noise = draws.get("actor_noise")
-            if a_noise is None:
-                a_noise = self._noise(state, (B, A))
-            active = (None if state.gate_cooldown is None
-                      else (state.gate_cooldown == 0).float())
-            state, a_metrics = self.update_actor_and_alpha(
-                state, batch, self._rows(a_noise), active)
-        else:
-            zero = torch.zeros((), device=self.device)
-            a_metrics = {"actor_loss": zero, "alpha_loss": zero,
-                         "alpha_value": torch.exp(state.log_alpha)}
-        if state.step % self.critic_target_update_freq == 0:
-            state = self.soft_update_targets(state)
-        state, x_metrics = self.update_aux(state, batch, buffer, rstate,
-                                           draws, ctx)
-        state.step += 1
-        return state, {**c_metrics, **a_metrics, **x_metrics,
-                       "target_lag": self._target_lag(state)}
+    def _snapshot_burst(self, state: AgentState, rstate: ReplayState,
+                        buffer: ReplayBuffer, full: Batch, c_metrics: Dict,
+                        td1, td2) -> None:
+        """Snapshot the FIRST gate-flagged minibatch since the loop last
+        drained the burst log (replay provenance + per-sample TD errors)."""
+        bl = state.burst_log
+        fresh = (c_metrics["td_gate_fired"] > 0) & (bl["valid"] == 0)
+        env_i, ep_i = full.idx[:, 0], full.idx[:, 1]
+        i32 = lambda x: x.to(torch.int32)
+        rec = {"valid": torch.ones_like(bl["valid"]),
+               "step": torch.full_like(bl["step"], state.step),
+               "ep_counter": torch.full_like(bl["ep_counter"],
+                                             rstate.ep_counter),
+               "env_i": i32(env_i), "ep_i": i32(ep_i),
+               "s": i32(full.idx[:, 2]),
+               "slot_ep": buffer.slot_ep_of(rstate, env_i, ep_i),
+               "reward": full.reward.reshape(-1), "td1": td1, "td2": td2}
+        state.burst_log = {k: torch.where(fresh, rec[k], bl[k]) for k in bl}

@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from sgqn_carla_tpu_torch.core.trace import span
 from sgqn_carla_tpu_torch.data.colors import (
     appearance_from_color, make_color_table)
 from sgqn_carla_tpu_torch.data.videos import get_videos
@@ -252,10 +253,11 @@ class DMCPixelEnv:
         action = torch.clamp(action.float(), -1.0, 1.0)
         phys = state.phys
         reward = None
-        for _ in range(self.action_repeat):
-            phys = self.task.step(phys, action)
-            r = self.task.reward(phys, action)
-            reward = r if reward is None else reward + r
+        with span("env.physics"):
+            for _ in range(self.action_repeat):
+                phys = self.task.step(phys, action)
+                r = self.task.reward(phys, action)
+                reward = r if reward is None else reward + r
         state = state.replace(phys=phys, step_i=state.step_i + 1,
                               video_frame=state.video_frame + 1)
         if self.mode == "distracting_cs":
@@ -276,8 +278,9 @@ class DMCPixelEnv:
                 self.color_step_std), state.appearance)
             state = state.replace(distract=replace(d, cam=cam),
                                   appearance=app)
-        frame = self._render_frame(state)
-        frames = torch.cat([state.frames[:, 3:], frame], dim=1)
+        with span("env.render"):
+            frame = self._render_frame(state)
+            frames = torch.cat([state.frames[:, 3:], frame], dim=1)
         state = state.replace(frames=frames)
         done = state.step_i >= self.max_episode_steps
         return state, StepResult(obs=frames, reward=reward, done=done)

@@ -48,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sgqn_carla_tpu_torch.core.trace import span
 from sgqn_carla_tpu_torch.data.overlay import get_overlay_pool
 from sgqn_carla_tpu_torch.envs.base import StepResult, env_slice
 from sgqn_carla_tpu_torch.physics.math3d import quat_to_mat
@@ -382,16 +383,18 @@ class CarlaTwinEnv:
         respawn = respawn.to(action.device, torch.float32)
         state = state.replace(collision=torch.zeros_like(state.collision))
         rewards = []
-        for k in range(self.action_repeat):
-            state, r = self._sim_substep(state, action, respawn[:, k])
-            rewards.append(r)
-        reward = torch.stack(rewards).mean(0)
+        with span("env.physics"):
+            for k in range(self.action_repeat):
+                state, r = self._sim_substep(state, action, respawn[:, k])
+                rewards.append(r)
+            reward = torch.stack(rewards).mean(0)
         state = state.replace(step_i=state.step_i + 1)
-        frame = self._render_frame(state, rain_noise=draws.get("rain"))
-        frames = torch.cat([state.frames[:, 3:], frame], dim=1)
-        state = state.replace(frames=frames)
+        with span("env.render"):
+            frame = self._render_frame(state, rain_noise=draws.get("rain"))
+            frames = torch.cat([state.frames[:, 3:], frame], dim=1)
+            state = state.replace(frames=frames)
+            obs = self._maybe_blend(state, frames, draws.get("blend"))
         done = state.step_i >= self.max_episode_steps
-        obs = self._maybe_blend(state, frames, draws.get("blend"))
         return state, StepResult(obs=obs, reward=reward, done=done)
 
     def render_eval(self, state: CarlaState, size: int = 448,

@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 
 from sgqn_carla_tpu_torch.agents.sac import SAC, AgentState
+from sgqn_carla_tpu_torch.core.trace import span
 from sgqn_carla_tpu_torch.data.replay import ReplayBuffer, ReplayState
 from sgqn_carla_tpu_torch.envs.vector import VectorEnv
 
@@ -55,10 +56,13 @@ class FusedTrainer:
         rewards = None
         ms = []
         for _ in range(length):
-            noise = self._draw(torch.randn, gen, obs.device)
-            actions = agent.sample_action(astate, obs, noise)
-            states, res = venv.step(states, actions)
-            rstate = buffer.add(rstate, actions, res.reward, res.obs)
+            with span("loop.act"):
+                noise = self._draw(torch.randn, gen, obs.device)
+                actions = agent.sample_action(astate, obs, noise)
+            with span("loop.env_step"):
+                states, res = venv.step(states, actions)
+            with span("loop.replay_add"):
+                rstate = buffer.add(rstate, actions, res.reward, res.obs)
             obs = res.obs
             rewards = res.reward if rewards is None else rewards + res.reward
             if do_updates:
@@ -73,9 +77,12 @@ class FusedTrainer:
         venv, buffer = self.venv, self.buffer
         rewards = None
         for _ in range(length):
-            actions = self._draw(torch.rand, gen, obs.device) * 2 - 1
-            states, res = venv.step(states, actions)
-            rstate = buffer.add(rstate, actions, res.reward, res.obs)
+            with span("loop.act"):
+                actions = self._draw(torch.rand, gen, obs.device) * 2 - 1
+            with span("loop.env_step"):
+                states, res = venv.step(states, actions)
+            with span("loop.replay_add"):
+                rstate = buffer.add(rstate, actions, res.reward, res.obs)
             obs = res.obs
             rewards = res.reward if rewards is None else rewards + res.reward
         return states, rstate, obs, gen, rewards

@@ -36,7 +36,16 @@ episode_steps + 2`, as the JAX loop does, with `torch.profiler` (CPU and,
 on the card, CUDA activities; under a mesh on rank 0 alone) into a Chrome
 trace in that directory. CUDA activity alone kept the kernel events
 at 78% of the bytes on an H100 (`scripts/trace_bytes.py`), so both are
-kept.
+kept. The trace holds the port's spans (`core/trace.py`), host ranges
+that the kernels launched inside them fall under by time: `loop.act`,
+`loop.env_step` and `loop.replay_add` around each chunk step's parts
+(`train/fused.py`); inside the env step `env.physics` (the action-repeat
+substeps and their rewards) and `env.render` (the frame and the frame
+stack); `sac.update` around each update, with its children `sac.sample`,
+`sac.context` (the algorithm's per-update context, SGQN's guided-backprop
+mask), `sac.critic`, `sac.actor` (on updates that step the actor),
+`sac.aux` and `sac.diag` (the burst-log snapshot and the target lag); and
+`sac.adam` around every Adam step, inside the phase that called it.
 
 `replay_spill host` keeps the full `replay_capacity` in a host ring
 behind a device ring of `replay_device_capacity` steps
