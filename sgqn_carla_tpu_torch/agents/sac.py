@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from sgqn_carla_tpu_torch.agents import nets
 from sgqn_carla_tpu_torch.core.config import Config
@@ -76,7 +77,14 @@ class Adam:
     skipped step touch nothing (the cooldown's skipped actor and aux
     steps). With `weight_decay` > 0 it is `optax.adamw` without a mask:
     the update is −lr·(m̂/(√v̂ + ε) + wd·p), p the weight before the
-    step."""
+    step.
+
+    A step gathers the leaves of each dtype and device into flat buffers
+    (a single leaf is its own flat view), runs the arithmetic once on them
+    and scatters the moments and the update back through views of the
+    flat results (`torch._foreach_*`), so its launches do not grow with
+    the number of leaves. Every op is elementwise, so each element goes
+    through the same f32 ops as a step leaf by leaf would, bit for bit."""
 
     def __init__(self, lr: float, b1: float, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0):
@@ -97,26 +105,35 @@ class Adam:
             bc1 = 1.0 - torch.pow(b1, st.count)
             bc2 = 1.0 - torch.pow(b2, st.count)
             on = None if active is None else active > 0
-            for p, g, m, v in zip(params, grads, st.mu, st.nu):
+            hold = None if keep is None else 1 - keep
+            groups: Dict[Tuple, List[int]] = {}
+            for i, p in enumerate(params):
+                groups.setdefault((p.dtype, p.device), []).append(i)
+            for idx in groups.values():
+                ps = [params[i] for i in idx]
+                ms = [st.mu[i] for i in idx]
+                vs = [st.nu[i] for i in idx]
+                g = _flatten_dense_tensors([grads[i] for i in idx])
+                m, v = _flatten_dense_tensors(ms), _flatten_dense_tensors(vs)
                 if keep is not None:
                     g = g * keep
                 m2 = (1 - b1) * g + b1 * m
                 v2 = (1 - b2) * (g * g) + b2 * v
                 u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + self.eps)
                 if self.weight_decay:
-                    u = u + self.weight_decay * p
+                    u = u + self.weight_decay * _flatten_dense_tensors(ps)
                 u = -self.lr * u
                 if keep is not None:
-                    m2 = keep * m2 + (1 - keep) * m
-                    v2 = keep * v2 + (1 - keep) * v
+                    m2 = keep * m2 + hold * m
+                    v2 = keep * v2 + hold * v
                     u = u * keep
                 if on is not None:
                     m2 = torch.where(on, m2, m)
                     v2 = torch.where(on, v2, v)
-                    u = torch.where(on, u, torch.zeros_like(u))
-                m.copy_(m2)
-                v.copy_(v2)
-                p.add_(u)
+                    u = torch.where(on, u, 0.0)
+                torch._foreach_copy_(ms, _unflatten_dense_tensors(m2, ms))
+                torch._foreach_copy_(vs, _unflatten_dense_tensors(v2, vs))
+                torch._foreach_add_(ps, _unflatten_dense_tensors(u, ps))
 
 
 # ------------------------------------------------------------ agent state
@@ -501,13 +518,15 @@ class SAC:
 
     @torch.no_grad()
     def _target_lag(self, state: AgentState) -> torch.Tensor:
-        """‖critic − target‖ / ‖critic‖ over the Q heads."""
+        """‖critic − target‖ / ‖critic‖ over the Q heads, from per-leaf
+        norms taken over the whole list at once."""
         on = [p for k, m in state.params["critic"].named_children()
               if k != "projection" for p in m.parameters()]
         tg = [p for k, m in state.target_params["critic"].named_children()
               if k != "projection" for p in m.parameters()]
-        diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(on, tg)))
-        norm = torch.sqrt(sum((a ** 2).sum() for a in on))
+        norms = torch._foreach_norm([*torch._foreach_sub(on, tg), *on])
+        diff, norm = torch.linalg.vector_norm(
+            torch.stack(norms).view(2, -1), dim=1)
         return diff / (norm + 1e-8)
 
     # ---------------------------------------------------------------- update
