@@ -29,8 +29,12 @@ Phases, each printing one JSON line:
   5. trainer  run_training at the default widths (11×32 trunk, hidden 1024,
               batch 128, bf16, 84 px, 16 envs) for a short episode schedule:
               finite losses, train.log written, every parameter on cuda,
-              the kernel launched; updates/s and env steps/s; then
-     update_profile  ms per SAC update, device-busy share, top device ops
+              the kernel launched; updates/s and env steps/s, and the
+              update graphs' counts (captures, replays, eager updates,
+              capture seconds), as every trainer phase gives them; then
+     update_profile  ms per SAC update, device-busy share, top device ops;
+              the timed updates are graph replays (each key warmed and
+              captured first), as in every profile below
   6. sgsac_trainer  the flagship configuration at the same schedule:
               --algorithm sgsac (guided-backprop mask, consistency loss,
               attribution decoder), --eval_mode all evaluated at step S2,
@@ -435,6 +439,26 @@ def _finite(x) -> bool:
     return x == x and abs(x) < float("inf")
 
 
+def _to_replays(upd, agent, run=4, most=32):
+    """Updates until `run` in a row are graph replays (each key met has
+    been warmed and captured), so that the updates timed next are the
+    replays the run's later updates are. The graph counts before the
+    timing."""
+    stats, n = agent.graph_stats, 0
+    for _ in range(most):
+        if n == run:
+            break
+        c, r = stats["captures"], stats["replays"]
+        upd()
+        n = n + 1 if (stats["replays"] > r and stats["captures"] == c) else 0
+    return dict(stats)
+
+
+def _graph_delta(before, agent):
+    """The graph counts since `before`."""
+    return {k: agent.graph_stats[k] - before[k] for k in before}
+
+
 def flagship(cfg):
     """chip_smoke's SAC configuration as the flagship run: sgsac, evaluated
     on the train env and on color_hard, video_easy and video_hard at step
@@ -498,6 +522,7 @@ def sgsac_trainer_phase(cfg, smi, run_training, raycast):
           "params_on_cuda": on_cuda,
           "losses_finite": finite, "losses_nonzero_once": nonzero,
           "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "update_graphs": tm["update_graphs"],
           "env_steps_per_s": (tm["random_steps"] * E
                               / max(tm["random_s"], 1e-9)),
           "update_chunk_s": tm["update_chunk_s"],
@@ -525,13 +550,14 @@ def sgsac_profile_phase(cfg, out, smi, kc):
     st, agent = out["agent_state"], out["agent"]
     buf, rst = out["replay"]
     upd = lambda: agent.update(st, rst, buf)
-    upd()
+    g0 = _to_replays(upd, agent)
     torch.cuda.synchronize()
     t0 = time.time()
     for _ in range(10):
         upd()
     torch.cuda.synchronize()
     ms_upd = (time.time() - t0) * 100
+    timed = _graph_delta(g0, agent)
     wall, busy, top = kc.profiled(upd, 5)
     batch = agent.sample_batch(buf, rst, st, {})
     mask = agent.update_context(st, batch, {})["mask"]
@@ -549,6 +575,7 @@ def sgsac_profile_phase(cfg, out, smi, kc):
           "batch_size": cfg.batch_size, "ms_per_update": ms_upd,
           "profiled_ms_per_update": wall, "device_busy_ms": busy,
           "device_idle_share": _idle(busy, ms_upd), "top_kernels_ms": top,
+          "graphs_before": g0, "graphs_timed": timed,
           "mask_pixel_share": share, "mask_step_ms": mask_ms,
           "row_quantile_shape": list(attr.shape), "row_quantile_ms": q_ms,
           "torch_quantile_ms": lib_ms,
@@ -789,12 +816,14 @@ def algorithms_phase(cfg, smi, raycast, kc):
         moved = not torch.equal(w0, st.params["trunk"].shared.convs[0].weight)
         on_cuda = _on_cuda(st)
         upd = lambda: agent.update(st, rst, buf)
+        g0 = _to_replays(upd, agent)
         torch.cuda.synchronize()
         t0 = time.time()
         for _ in range(10):
             upd()
         torch.cuda.synchronize()
         ms_upd = (time.time() - t0) * 100
+        timed = _graph_delta(g0, agent)
         _, busy, top = kc.profiled(upd, 4)
         good = finite and aux_ok and moved and on_cuda
         ok &= good
@@ -803,6 +832,7 @@ def algorithms_phase(cfg, smi, raycast, kc):
                      "state_on_cuda": on_cuda, "image_size": c.image_size,
                      "ms_per_update": ms_upd, "device_busy_ms": busy,
                      "device_idle_share": _idle(busy, ms_upd),
+                     "graphs_before": g0, "graphs_timed": timed,
                      "top_kernels_ms": top,
                      "last_losses": {k: v[-1] for k, v in vals.items()
                                      if k.endswith("loss")}}
@@ -864,6 +894,7 @@ def pad_trainer_phase(cfg, smi, run_training, raycast):
           "logged_steps": steps, "traces": traces, "trace_bytes": trace_bytes,
           "kernel_launches": launches,
           "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "update_graphs": tm["update_graphs"],
           "env_steps_per_s": (tm["random_steps"] * E
                               / max(tm["random_s"], 1e-9)),
           "update_chunk_s": tm["update_chunk_s"],
@@ -1084,6 +1115,7 @@ def carla_trainer_phase(cfg, smi, kc):
           "resume_bytes": tm["resume_bytes"],
           "resumed_to_S3": resumed, "resumed_final_row": last,
           "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "update_graphs": tm["update_graphs"],
           "env_steps_per_s": (tm["random_steps"] * RECORD_E
                               / max(tm["random_s"], 1e-9)),
           "update_chunk_s": tm["update_chunk_s"],
@@ -1813,6 +1845,7 @@ def domain_trainer_phase(cfg, smi, raycast, phase, domain, task,
           "kernel_launches": launches,
           "eval_launches_by_mode": {m: e["launches"] for m, e in ev.items()},
           "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "update_graphs": tm["update_graphs"],
           "env_steps_per_s": (tm["random_steps"] * RECORD_E
                               / max(tm["random_s"], 1e-9)),
           "update_chunk_ms_per_wrapper_step": (
@@ -2271,6 +2304,7 @@ def spill_trainer_phase(cfg, smi, run_training, raycast):
           and launches > 0)
     emit({"phase": "spill_trainer", "ok": ok, "card": smi,
           "phase_s": time.time() - start,
+          "update_graphs": tm["update_graphs"],
           "config": {"domain": "walker_walk", "algorithm": "sac",
                      "num_envs": run_cfg.num_envs, "episode_length": 8,
                      "train_steps": 12, "replay_capacity": 320,
@@ -2678,6 +2712,7 @@ def main():
           "seconds": train_s, "episodes": out["episodes"],
           "kernel_launches": main_launches, "params_on_cuda": on_cuda,
           "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
+          "update_graphs": tm["update_graphs"],
           "env_steps_per_s": (tm["random_steps"] * E
                               / max(tm["random_s"], 1e-9)),
           "update_chunk_s": tm["update_chunk_s"],
@@ -2687,17 +2722,20 @@ def main():
     # where an update's time goes (trained state, filled ring)
     buf, rst = out["replay"]
     upd = lambda: out["agent"].update(st, rst, buf)
+    g0 = _to_replays(upd, out["agent"])
     torch.cuda.synchronize()
     t0 = time.time()
     for _ in range(10):
         upd()
     torch.cuda.synchronize()
     ms_upd = (time.time() - t0) * 100
+    timed = _graph_delta(g0, out["agent"])
     wall, busy, top = kc.profiled(upd, 5)
     emit({"phase": "update_profile", "card": smi, "batch_size": 128,
           "ms_per_update": ms_upd, "profiled_ms_per_update": wall,
           "device_busy_ms": busy, "device_idle_share": _idle(busy, ms_upd),
-          "top_kernels_ms": top})
+          "top_kernels_ms": top, "graphs_before": g0,
+          "graphs_timed": timed})
 
     # ---- 6. the flagship sgsac trainer (eval, video, checkpoints), the
     # resume from its checkpoint, then its update profile

@@ -7,12 +7,20 @@ the reference betas, clipped double-Q target, delayed actor/alpha and
 target updates with separate taus for Q heads vs encoder, and the
 TD-anomaly gate (on by default) with its cooldown, latch and burst log.
 
-PyTorch idiom: the agent state holds `nn.Module`s updated in place; the
-random draws (replay indices, crop offsets, policy noise) come from the
-state's `torch.Generator` or are injected (`draws`), so tests can feed the
-JAX update's draws. The update frequency gates are host-side integer
-checks on the step counter; the TD gate itself is `torch.where` on device
-tensors, so an update never waits on the device.
+PyTorch idiom: the agent state holds `nn.Module`s and tensors updated in
+place, the gate's state and burst log included; the random draws (replay
+indices, crop offsets, policy noise) come from the state's
+`torch.Generator` or are injected (`draws`), so tests can feed the JAX
+update's draws. The update frequency gates are host-side integer checks on
+the step counter; the TD gate itself is `torch.where` on device tensors,
+so an update never waits on the device.
+
+On a card, off a mesh and without injected draws, an update is replayed
+as a CUDA graph (`core/graphs.py`), keyed by the host branches it takes
+(`graph_key`); every algorithm's update writes its state in place, so a
+replay reads and writes what an eager update would. An eager update runs
+the same `update_body`. `graph_stats` counts captures, replays and eager
+updates.
 
 Algorithm hooks, as the JAX `SAC._update` has them: `init_aux` (aux
 modules and optimizer), `update_context` (once per update, before the
@@ -54,6 +62,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from sgqn_carla_tpu_torch.agents import nets
 from sgqn_carla_tpu_torch.core.config import Config
+from sgqn_carla_tpu_torch.core.graphs import DeviceInt, UpdateGraphs
 from sgqn_carla_tpu_torch.core.trace import span
 from sgqn_carla_tpu_torch.data.replay import Batch, ReplayBuffer, ReplayState
 from sgqn_carla_tpu_torch.ops import augment
@@ -244,6 +253,10 @@ class SAC:
                               weight_decay=cfg.critic_weight_decay)
         self.alpha_tx = Adam(cfg.alpha_lr, cfg.alpha_beta)
         self.mesh = None  # a parallel.Mesh: data-parallel updates
+        self._graphs = UpdateGraphs()
+        self.graph_stats = self._graphs.stats
+        # the step count the burst log records, on the device
+        self._step = DeviceInt(torch.int32, self.device)
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global-batch tensor (all of it off a
@@ -437,32 +450,31 @@ class SAC:
         # a non-finite loss is always a burst (once armed)
         burst = armed & ((loss > cfg.td_anomaly_gate * ema) | ~finite)
         frozen = burst
-        if state.gate_cooldown is not None:
-            frozen = burst | (state.gate_cooldown > 0)
-            state.gate_cooldown = torch.where(
-                burst, torch.full_like(state.gate_cooldown,
-                                       cfg.td_gate_cooldown),
-                torch.clamp(state.gate_cooldown - 1, min=0))
+        # the gate's state is written in place (`out=`)
+        cooldown, latch = state.gate_cooldown, state.gate_latch
+        if cooldown is not None:
+            frozen = burst | (cooldown > 0)
+            torch.where(burst, torch.full_like(cooldown, cfg.td_gate_cooldown),
+                        torch.clamp(cooldown - 1, min=0), out=cooldown)
         latched = None
-        if state.gate_latch is not None:
-            run = torch.where(frozen, state.gate_latch + 1,
-                              torch.zeros_like(state.gate_latch))
+        if latch is not None:
+            run = torch.where(frozen, latch + 1, torch.zeros_like(latch))
             latched = (run >= cfg.td_gate_latch) & finite
             frozen = frozen & ~latched
-            state.gate_latch = torch.where(latched, torch.zeros_like(run), run)
-            if state.gate_cooldown is not None:
-                state.gate_cooldown = torch.where(
-                    latched, torch.zeros_like(state.gate_cooldown),
-                    state.gate_cooldown)
+            torch.where(latched, torch.zeros_like(run), run, out=latch)
+            if cooldown is not None:
+                torch.where(latched, torch.zeros_like(cooldown), cooldown,
+                            out=cooldown)
         keep = torch.where(frozen, 0.0, 1.0)
         self.critic_tx.step(params, grads, state.critic_opt, keep=keep)
         # the EMA ignores frozen losses; on a latch break it snaps to the
         # observed (finite) loss
         new_ema = loss if state.step == 0 else 0.99 * ema + 0.01 * loss
-        ema = torch.where(frozen, ema, new_ema)
-        if latched is not None:
-            ema = torch.where(latched & finite, loss, ema)
-        state.critic_loss_ema = ema
+        if latched is None:
+            torch.where(frozen, ema, new_ema, out=ema)
+        else:
+            torch.where(latched & finite, loss,
+                        torch.where(frozen, ema, new_ema), out=ema)
         metrics = {**metrics, "td_gate_fired": burst.float(),
                    "td_gate_frozen": frozen.float()}
         if latched is not None:
@@ -535,6 +547,30 @@ class SAC:
                    ctx=None):
         return state, {}
 
+    def graph_key(self, state: AgentState, rstate: ReplayState,
+                  buffer: ReplayBuffer, draws: Optional[Dict]):
+        """What the update branches on at the host, as (parities, phases),
+        or None where it runs eagerly only: off a card, under a mesh or
+        with injected draws. Parities: the actor, target and aux steps;
+        phases: the first step (it seeds the loss EMA), the gate's
+        warm-up and the sampler's host bounds."""
+        if self.device.type != "cuda" or self.mesh is not None or draws:
+            return None
+        step = state.step
+        parities = (step % self.actor_update_freq == 0,
+                    step % self.critic_target_update_freq == 0,
+                    step % self.cfg.aux_update_freq == 0)
+        phases = (step == 0, state.critic_loss_ema is not None
+                  and step >= self.GATE_WARMUP, buffer.sample_key(rstate))
+        return parities, phases
+
+    def graph_mirrors(self, state: AgentState, rstate: ReplayState,
+                      buffer: ReplayBuffer):
+        """The device mirrors the update reads, with their host values
+        (refreshed before each replay)."""
+        own = [] if state.burst_log is None else [(self._step, state.step)]
+        return own + buffer.mirrors(rstate)
+
     def update(self, state: AgentState, rstate: ReplayState,
                buffer: ReplayBuffer, draws: Optional[Dict] = None):
         """One update: context → critic → actor (every actor_update_freq)
@@ -542,64 +578,78 @@ class SAC:
         may inject "idx" (env_i, ep_i, s), "crop_obs"/"crop_next" offsets,
         "target_noise" and "actor_noise" (B, A), and the algorithm's own
         keys; whatever is missing is drawn from `state.gen`. Under a mesh
-        the draws, injected or not, have the global batch's shapes."""
-        draws = draws or {}
-        B, A = self.cfg.batch_size, self.action_dim
+        the draws, injected or not, have the global batch's shapes.
+
+        Replayed as a CUDA graph where `graph_key` gives a key, else
+        eager."""
         with span("sac.update"):
-            with span("sac.sample"):
-                full = self.sample_batch(buffer, rstate, state, draws)
-            batch = self._local(full)
-            with span("sac.context"):
-                ctx = self.update_context(state, batch, draws)
-            t_noise = draws.get("target_noise")
-            if t_noise is None:
-                t_noise = self._noise(state, (B, A))
-            with span("sac.critic"):
-                state, c_metrics = self.update_critic(
-                    state, batch, self._rows(t_noise), ctx, draws)
-            td1, td2 = c_metrics.pop("_td1"), c_metrics.pop("_td2")
-            if state.step % self.actor_update_freq == 0:
-                a_noise = draws.get("actor_noise")
-                if a_noise is None:
-                    a_noise = self._noise(state, (B, A))
-                active = (None if state.gate_cooldown is None
-                          else (state.gate_cooldown == 0).float())
-                with span("sac.actor"):
-                    state, a_metrics = self.update_actor_and_alpha(
-                        state, batch, self._rows(a_noise), active)
-            else:
-                zero = torch.zeros((), device=self.device)
-                a_metrics = {"actor_loss": zero, "alpha_loss": zero,
-                             "alpha_value": torch.exp(state.log_alpha)}
-            if state.step % self.critic_target_update_freq == 0:
-                state = self.soft_update_targets(state)
-            with span("sac.aux"):
-                state, x_metrics = self.update_aux(state, batch, buffer,
-                                                   rstate, draws, ctx)
-            with span("sac.diag"):
-                if state.burst_log is not None and td1.shape[0] == B:
-                    self._snapshot_burst(state, rstate, buffer, full,
-                                         c_metrics, td1, td2)
-                lag = self._target_lag(state)
+            key = self.graph_key(state, rstate, buffer, draws)
+            metrics = None if key is None else self._graphs.update(
+                self, key, state, rstate, buffer)
+            if metrics is None:
+                self.graph_stats["eager"] += 1
+                metrics = self.update_body(state, rstate, buffer, draws or {})
             state.step += 1
-            return state, {**c_metrics, **a_metrics, **x_metrics,
-                           "target_lag": lag}
+            return state, metrics
+
+    def update_body(self, state: AgentState, rstate: ReplayState,
+                    buffer: ReplayBuffer, draws: Dict) -> Dict:
+        """The device work of one update, its state written in place; the
+        host's step count is left to the caller. Its metrics."""
+        B, A = self.cfg.batch_size, self.action_dim
+        with span("sac.sample"):
+            full = self.sample_batch(buffer, rstate, state, draws)
+        batch = self._local(full)
+        with span("sac.context"):
+            ctx = self.update_context(state, batch, draws)
+        t_noise = draws.get("target_noise")
+        if t_noise is None:
+            t_noise = self._noise(state, (B, A))
+        with span("sac.critic"):
+            state, c_metrics = self.update_critic(
+                state, batch, self._rows(t_noise), ctx, draws)
+        td1, td2 = c_metrics.pop("_td1"), c_metrics.pop("_td2")
+        if state.step % self.actor_update_freq == 0:
+            a_noise = draws.get("actor_noise")
+            if a_noise is None:
+                a_noise = self._noise(state, (B, A))
+            active = (None if state.gate_cooldown is None
+                      else (state.gate_cooldown == 0).float())
+            with span("sac.actor"):
+                state, a_metrics = self.update_actor_and_alpha(
+                    state, batch, self._rows(a_noise), active)
+        else:
+            zero = torch.zeros((), device=self.device)
+            a_metrics = {"actor_loss": zero, "alpha_loss": zero,
+                         "alpha_value": torch.exp(state.log_alpha)}
+        if state.step % self.critic_target_update_freq == 0:
+            state = self.soft_update_targets(state)
+        with span("sac.aux"):
+            state, x_metrics = self.update_aux(state, batch, buffer,
+                                               rstate, draws, ctx)
+        with span("sac.diag"):
+            if state.burst_log is not None and td1.shape[0] == B:
+                self._snapshot_burst(state, rstate, buffer, full,
+                                     c_metrics, td1, td2)
+            lag = self._target_lag(state)
+        return {**c_metrics, **a_metrics, **x_metrics, "target_lag": lag}
 
     def _snapshot_burst(self, state: AgentState, rstate: ReplayState,
                         buffer: ReplayBuffer, full: Batch, c_metrics: Dict,
                         td1, td2) -> None:
         """Snapshot the FIRST gate-flagged minibatch since the loop last
-        drained the burst log (replay provenance + per-sample TD errors)."""
+        drained the burst log (replay provenance + per-sample TD errors),
+        in place."""
         bl = state.burst_log
         fresh = (c_metrics["td_gate_fired"] > 0) & (bl["valid"] == 0)
         env_i, ep_i = full.idx[:, 0], full.idx[:, 1]
         i32 = lambda x: x.to(torch.int32)
         rec = {"valid": torch.ones_like(bl["valid"]),
-               "step": torch.full_like(bl["step"], state.step),
-               "ep_counter": torch.full_like(bl["ep_counter"],
-                                             rstate.ep_counter),
+               "step": self._step.at(state.step),
+               "ep_counter": buffer.ep_counter_of(rstate),
                "env_i": i32(env_i), "ep_i": i32(ep_i),
                "s": i32(full.idx[:, 2]),
                "slot_ep": buffer.slot_ep_of(rstate, env_i, ep_i),
                "reward": full.reward.reshape(-1), "td1": td1, "td2": td2}
-        state.burst_log = {k: torch.where(fresh, rec[k], bl[k]) for k in bl}
+        for k, v in bl.items():
+            torch.where(fresh, rec[k], v, out=v)

@@ -91,6 +91,15 @@ class SGSAC(SAC):
         return _params(params["trunk"], params["critic"].projection,
                        aux_params["decoder"])
 
+    def graph_key(self, state, rstate, buffer, draws):
+        """SAC's key with the colour fill's warm-up among the phases."""
+        key = super().graph_key(state, rstate, buffer, draws)
+        if key is None:
+            return None
+        parities, phases = key
+        warm = self._fill_warmup > 0 and state.step < self._fill_warmup
+        return parities, (*phases, self._fill_mode == "color" and warm)
+
     # ------------------------------------------------------------ attribution
     def attribution_grad(self, params, obs, action):
         """Guided-backprop d(ΣQ1)/d(obs); the parameters stay frozen."""

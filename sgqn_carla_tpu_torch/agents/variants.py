@@ -19,6 +19,9 @@ of the base SAC:
     `soda_batch_size`, L2-normalised MSE; BatchNorm in batch-statistics
     mode with the running statistics in `aux_extra`.
 
+Each variant's update writes its state in place (SODA its BatchNorm
+statistics too), so on a card it is replayed as a CUDA graph as SAC's is.
+
 Every aux step runs on the updates where `step % aux_update_freq == 0`.
 None of them is frozen by the TD gate's cooldown, as in the JAX package
 (SGQN's is). The packed SVEA formulation of the JAX package's
@@ -331,7 +334,9 @@ class SODA(_AuxSAC):
 
         loss, new_stats, grads = value_and_grads(byol, params, self.mesh)
         self.aux_tx.step(params, grads, state.aux_opt)
-        state.aux_extra["stats"] = new_stats
+        for name, new in new_stats.items():
+            for k, v in new.items():
+                stats[name][k].copy_(v)
         ema_(tgt["trunk"], state.params["trunk"], cfg.soda_tau)
         ema_(tgt["proj"], aux["proj"], cfg.soda_tau)
         return state, {"aux_loss": loss}

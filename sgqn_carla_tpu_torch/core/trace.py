@@ -20,7 +20,8 @@ The profiler that is running keeps the spans and writes them out; this
 module keeps nothing. With no profiler running a span costs one flag
 check and enters one shared null context.
 
-Span names start with `sac.` (the learner's update, `agents/sac.py`),
+Span names start with `sac.` (the learner's update, `agents/sac.py`; its
+graph's capture and replay, `core/graphs.py`),
 `loop.` (the training chunk, `train/fused.py`) or `env.` (the env step,
 `envs/base.py`, `envs/carla_twin.py`).
 """

@@ -11,6 +11,13 @@ never two), and the write pointers are Python integers — episodes are
 lockstep and fixed-length, so the pointers are known on the host without
 reading the device. Samplers draw from a `torch.Generator` on the ring's
 device, and take injected indices so tests can feed the JAX buffer's draws.
+What the device work of an update reads of the pointers, the oldest slot
+(`ep_ptr + 1`) and `ep_counter`, it reads from 0-dim device mirrors
+(`core/graphs.py::DeviceInt`): `add` writes them at an episode end, and a
+reader rewrites one whose host value was set by other means, so a CUDA
+graph of the update replays with the values of its own update.
+`sample_key` is what the sampler's kernels take from the host (the draws'
+bounds).
 
 Under a data-parallel mesh (`mesh`, `parallel/mesh.py`) the ring holds
 this rank's envs only, as the JAX ring is sharded on its env axis; the
@@ -28,6 +35,8 @@ from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import torch
+
+from sgqn_carla_tpu_torch.core.graphs import DeviceInt
 
 
 @dataclass
@@ -80,6 +89,8 @@ class ReplayBuffer:
             raise ValueError(f"replay policy {policy!r}")
         self.policy = policy
         self.device = torch.device(device)
+        self._oldest = DeviceInt(torch.long, self.device)
+        self._ep_counter = DeviceInt(torch.int32, self.device)
 
     def init(self) -> ReplayState:
         E, N, T = self.env_hi - self.env_lo, self.num_episodes, self.T
@@ -124,6 +135,8 @@ class ReplayBuffer:
             state.ep_ptr = next_slot
             state.num_eps = min(state.num_eps + 1, self.num_episodes)
             state.ep_counter += 1
+            for m, v in self.mirrors(state):
+                m.at(v)
         else:
             state.step_ptr = s + 1
         return state
@@ -137,6 +150,20 @@ class ReplayBuffer:
         fr = state.frames[env_i[:, None], ep_i[:, None], idxs]  # (B,K,3,H,W)
         return fr.reshape(fr.shape[0], K * 3, *fr.shape[3:])
 
+    def mirrors(self, state: ReplayState):
+        """The device mirrors of the pointers, with their host values."""
+        return [(self._oldest, state.ep_ptr + 1),
+                (self._ep_counter, state.ep_counter)]
+
+    def ep_counter_of(self, state: ReplayState) -> torch.Tensor:
+        """`ep_counter` as a 0-dim int32 device tensor."""
+        return self._ep_counter.at(state.ep_counter)
+
+    def sample_key(self, state: ReplayState) -> Tuple[int, int]:
+        """What `sample_idx` takes from the host: the completed episodes
+        and, while there are none, the steps written."""
+        return state.num_eps, state.step_ptr if state.num_eps == 0 else 0
+
     def sample_idx(self, state: ReplayState, gen: torch.Generator,
                    batch_size: int):
         """Uniform (env, episode, step) over completed episodes."""
@@ -146,7 +173,8 @@ class ReplayBuffer:
         full = state.num_eps >= self.num_episodes
         n = max(state.num_eps - int(full), 1)
         r = torch.randint(0, n, (batch_size,), generator=gen, device=dev)
-        ep_i = (state.ep_ptr + 1 + r) % self.num_episodes if full else r
+        ep_i = ((r + self._oldest.at(state.ep_ptr + 1)) % self.num_episodes
+                if full else r)
         s_hi = max(state.step_ptr, 1) if state.num_eps == 0 else self.T
         s = torch.randint(0, s_hi, (batch_size,), generator=gen, device=dev)
         return env_i, ep_i, s

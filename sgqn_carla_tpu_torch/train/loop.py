@@ -385,8 +385,10 @@ def run_training(cfg: Config, env_factory=make_env,
     collapse guard's rollbacks, and wall-clock seconds of the warm-up
     chunks (env only), the catch-up burst (updates only), the update
     chunks, each eval mode (seconds, env steps, kernel launches), the
-    checkpoint saves and the host-spill exchanges — and the final agent,
-    env, replay, host spill (None without it) and generator state.
+    checkpoint saves, the host-spill exchanges and the agent's update
+    graphs (captures, replays, eager updates, capture seconds) — and the
+    final agent, env, replay, host spill (None without it) and generator
+    state.
 
     With no `mesh`: under torchrun this process joins its group (of
     `mesh_data_axis` ranks); else with `mesh_data_axis` N > 1, N ranks are
@@ -685,6 +687,7 @@ def run_training(cfg: Config, env_factory=make_env,
             timing["save_s"] += time.time() - t0
             timing["saves"] += 1
 
+    timing["update_graphs"] = dict(agent.graph_stats)
     if main:
         print("Completed training for", work_dir)
     return {"work_dir": work_dir, "episodes": episode,

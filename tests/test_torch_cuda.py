@@ -741,3 +741,146 @@ def test_composer_frame_matches_plain_version():
     _check(k, raycast._render_packed_ref(m, params, fovy, 84, 84))
     poles = {i for i, g in enumerate(m.geoms) if g.name.endswith("/pole")}
     assert poles <= set(torch.unique(k[1]).tolist())
+
+
+def _graph_cfg(algo):
+    """The flagship widths in bf16 (11×32 trunk, hidden 1024, projection
+    100, batch 128) with the flagship's TD gate (5, cooldown 250, latch
+    750)."""
+    from sgqn_carla_tpu_torch.core.config import Config
+
+    return Config(algorithm=algo, eval_mode="none", precision="bf16",
+                  batch_size=128, td_anomaly_gate=5.0, td_gate_cooldown=250,
+                  td_gate_latch=750, device="cuda").finalize()
+
+
+def _graph_agent(algo, dev):
+    """An agent at `_graph_cfg`, and its state from seed 0."""
+    from sgqn_carla_tpu_torch.agents.factory import ALGORITHMS
+    from sgqn_carla_tpu_torch.data.overlay import synth_images
+
+    cfg = _graph_cfg(algo)
+    crop = cfg.image_crop_size
+    kw = ({"overlay_pool": synth_images(8, crop, crop, seed=0)}
+          if algo in ("svea", "soda", "sgsac") else {})
+    agent = ALGORITHMS[algo]((9, crop, crop), (6,), cfg, device=dev, **kw)
+    return agent, agent.init_state(0)
+
+
+def _state_leaves(st):
+    """Every tensor of an agent state, cloned, and the generator's state."""
+    from sgqn_carla_tpu_torch.core import checkpoint as ckpt
+
+    flat = ckpt.flatten({
+        "params": st.params, "target": st.target_params,
+        "aux": st.aux_params, "log_alpha": st.log_alpha,
+        "opt": [st.actor_opt, st.critic_opt, st.alpha_opt, st.aux_opt],
+        "gate": [st.critic_loss_ema, st.gate_cooldown, st.gate_latch],
+        "burst_log": st.burst_log, "extra": st.aux_extra})
+    out = {k: v.clone() for k, v in flat.items()
+           if isinstance(v, torch.Tensor)}
+    out["gen"] = st.gen.get_state()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["sac", "sgsac", "rad", "drq", "svea",
+                                  "curl", "pad", "soda"])
+@pytest.mark.parametrize("start,burst_at,stats", [
+    (0, None, {"captures": 2, "replays": 8, "eager": 2}),
+    (1996, 2003, {"captures": 4, "replays": 8, "eager": 2})])
+def test_update_graph_replays_the_eager_update(algo, start, burst_at, stats):
+    """Ten flagship-width updates of each algorithm replayed as CUDA
+    graphs against the same ten run eagerly, from one state and seed on
+    one ring, compared after every update: metrics, parameters, targets,
+    every Adam's moments and count, log_alpha, the TD gate's EMA, cooldown
+    and latch, the burst log, SODA's target and statistics and the
+    generator's state, bit for bit. A second eager run (`update_body`
+    called directly) says what the eager update repeats: every tensor
+    here, on the H100.
+
+    The first update of each parity warms up eagerly, the rest are
+    replays, each key captured the first time it is met. From step 0,
+    update 0 (which seeds the loss EMA, a phase of its own) and 1 warm
+    up and 2 and 3 are captured. From 1996 the gate's warm-up ends at
+    2000, which drops the graphs: 2000 and 2001 are captured anew without
+    another eager update. The loss EMA starts far above the loss and at
+    2003 is set far below it, so the gate fires inside a replay, the
+    burst is logged, and 2004–2005 run in its cooldown (the actor, and
+    SGQN's aux step, skipped on the device). The ring (reservoir, 4 envs,
+    4 episodes of 5 steps) takes one transition after every update, so
+    episodes end and its write head and completion count move between
+    replays."""
+    from sgqn_carla_tpu_torch.data.replay import ReplayBuffer
+
+    dev = _cuda()
+    size = _graph_cfg(algo).image_size
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frame = lambda: torch.randint(0, 256, (4, 9, size, size), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+    buf = ReplayBuffer(num_envs=4, episode_len=5, capacity=80,
+                       image_size=size, action_size=6, batch_size=128,
+                       policy="reservoir", device=dev)
+    ring = buf.add_reset(buf.init(), frame())
+
+    def add():
+        act = torch.rand((4, 6), generator=gen, device=dev) * 2 - 1
+        rew = torch.rand((4,), generator=gen, device=dev)
+        return buf.add(ring, act, rew, frame())
+
+    for _ in range(22):
+        ring = add()
+    assert ring.num_eps == buf.num_episodes == 4
+    runs = [_graph_agent(algo, dev) for _ in range(3)]  # graph, eager ×2
+    for _, st in runs:
+        st.step = start
+        if start:  # an EMA far above the loss: no burst of its own
+            st.critic_loss_ema.fill_(1e6)
+    ptrs, out, ep_ptrs, counters = [], [], set(), {}
+    for step in range(start, start + 10):
+        counters[step] = ring.ep_counter
+        if step == burst_at:
+            for _, st in runs:
+                st.critic_loss_ema.fill_(1e-9)
+        row = []
+        for i, (agent, st) in enumerate(runs):
+            if i == 0:
+                st, m = agent.update(st, ring, buf)
+                ptrs.append(m["critic_loss"].data_ptr())
+            else:
+                m = agent.update_body(st, ring, buf, {})
+                st.step += 1
+            assert st.step == step + 1
+            row.append(({k: v.clone() for k, v in m.items()},
+                        _state_leaves(st)))
+        out.append(row)
+        ep_ptrs.add(ring.ep_ptr)
+        ring = add()
+    torch.cuda.synchronize()
+    counts = dict(runs[0][0].graph_stats)
+    assert counts.pop("capture_s") > 0
+    assert counts == stats
+    assert len(set(ptrs)) == len(ptrs)  # each update's own metrics
+    assert len(ep_ptrs) > 1
+    if burst_at is not None:
+        bl = runs[0][1].burst_log
+        assert int(bl["valid"]) == 1 and int(bl["step"]) == burst_at
+        assert int(bl["ep_counter"]) == counters[burst_at]
+        cooled = out[burst_at + 1 - start][0][0]  # an even step: actor, aux
+        assert float(cooled["td_gate_frozen"]) == 1.0
+        assert float(cooled["actor_loss"]) == 0.0
+        if algo == "sgsac":
+            assert float(cooled["aux_loss"]) == 0.0
+    unrepeated, differ = set(), []
+    for step, ((mg, sg), (me, se), (me2, se2)) in zip(
+            range(start, start + 10), out):
+        for name, g, e, e2 in ([("metric/" + k, mg[k], me[k], me2[k])
+                                for k in me]
+                               + [(k, sg[k], se[k], se2[k]) for k in se]):
+            if not torch.equal(e, e2):
+                unrepeated.add(name)
+            elif not torch.equal(g, e):
+                differ.append((step, name, float((g.float() - e.float())
+                                                 .abs().max())))
+    assert not unrepeated, sorted(unrepeated)
+    assert not differ, differ[:8]
