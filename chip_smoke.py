@@ -1,252 +1,112 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (sgqn_carla_tpu_torch) on one GPU.
+"""Pass/fail check of the PyTorch/CUDA port (sgqn_carla_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
-  1. device   torch/CUDA versions and the card (nvidia-smi name, power limit)
-  2. build    nvcc build of csrc/raycast.cu for sm_90a (seconds), and
-              each instantiation's registers per thread and shared memory
-  3. kernel   the ray-cast kernel on walker scenes (E = 16 at the training
-              shapes 84×84 and 100×100, 64 and 768 envs at 84×84, and one
-              448×448 frame), both
-              instantiations: culled (the render path's) and unculled. They
-              must agree bit for bit in rgb, seg and depth, and the culled
-              one must match its plain PyTorch version: seg mismatches ≤ 5
-              pixels per frame; on seg-agreeing pixels ≤ 10 pixels off by
-              > 2 levels and none by > 32. CUDA-event times per call over 20
-              back-to-back calls, and the device time of each
-              instantiation: the same 20 calls queued behind a spin kernel
-              so that the host's launch time drops out (in turns: culled,
-              unculled, unculled, culled)
-              beside two bounds: the operations these inputs need
-              (`raycast.ops_needed`) or the bytes, and the unculled count.
-              Then a camera inside a bounding sphere (bit identity and the
-              plain version again)
-  4. env      VectorEnv walker-walk (train mode, 16 envs) for a few random
-              steps: obs (16, 9, 84, 84) uint8, finite rewards, one kernel
-              launch per rendered batch; ms per env step
-  5. trainer  run_training at the default widths (11×32 trunk, hidden 1024,
-              batch 128, bf16, 84 px, 16 envs) for a short episode schedule:
-              finite losses, train.log written, every parameter on cuda,
-              the kernel launched; updates/s and env steps/s, and the
-              update graphs' counts (captures, replays, eager updates,
-              capture seconds), as every trainer phase gives them; then
-     update_profile  ms per SAC update, device-busy share, top device ops;
-              the timed updates are graph replays (each key warmed and
-              captured first), as in every profile below
-  6. sgsac_trainer  the flagship configuration at the same schedule:
-              --algorithm sgsac (guided-backprop mask, consistency loss,
-              attribution decoder), --eval_mode all evaluated at step S2,
-              --save_video, checkpoints with the replay ring at steps S1
-              and S2. Every loss, aux_loss included, finite and non-zero
-              at least once, train/aux_loss in train.log, every parameter
-              and Adam moment on cuda (decoder and aux optimizer
-              included), the kernel launched in training and in every
-              eval mode; eval.log in the JAX schema with finite values,
-              model/ and resume/ holding S1 and S2, the recorded episode
-              (T, 448, 448, 3) uint8; updates/s, env steps/s, eval
-              seconds per mode and eval env steps/s
-  7. resume   resume/S2 restored into fresh objects on the card: every
-              tensor (weights, targets, log_alpha, Adam moments and
-              counts, decoder, replay ring, env states and obs), both
-              generator states and the loop counters bit-identical to the
-              trainer's final state; save and restore seconds and bytes;
-              three more updates from each (difference reported, not
-              gated); then run_training to step S3 prints "Resumed from
-              ... at step S2" and logs finite losses at step S3
-     sgsac_update_profile  ms per sgsac update, device-busy share, top
-              device ops, the mask's pixel share (0.04-0.25: the exact
-              0.95 quantile keeps ~5% plus ties), the time of the mask
-              step and of the row quantile alone at (384, 7056) f32, and
-              each stage of the update (sample, mask, critic, actor,
-              targets, aux) alone: host ms and device-busy ms
-     offline_eval  train.eval on video_hard and on distracting_cs at
-              intensity 0.1: eval_episodes finite rewards each in
-              eval_<mode>.json, the kernel launched
-     eval_render  kernel vs plain version, each composited with the
-              mode's video background, for a reset state of color_hard,
-              video_easy, video_hard and distracting_cs: 6 envs at 84 px
-              and env 0 at 448 px, at the kernel phase's bounds, and the
-              env's own frame equal to the kernel's composite
-  8. algorithms  rad, drq, svea, curl, pad, soda and sac with the
-              critic's AdamW (--critic_weight_decay 1e-4), each at full
-              width (soda_batch_size 256) on a 16-env ring filled by a
-              rollout of the kernel's frames (one 100-px ring for
-              rad/curl/pad/soda, one 84-px ring for drq/svea/sac): 10
-              updates with finite losses, aux_loss non-zero at least once
-              for curl/pad/soda, the whole agent state on the card (aux
-              modules, SODA's target and statistics), the trunk moved;
-              steady ms per update, device-busy ms and top device ops
-     pad_trainer  run_training --algorithm pad at 100 px, 16 envs, to
-              step S3, eval on video_hard at S2, saves at S1 and S2, the
-              collapse guard (0.05) with a collapse injected at step S2
-              (SGQN_FAULT_INJECT_COLLAPSE), --profile_dir: exactly one
-              rollback (S2 → S1), training reaches step S3, a non-empty
-              trace, the kernel launched; updates/s, env steps/s
-     pad_offline_eval  train.eval --algorithm pad --eval_mode video_hard
-              on that run's checkpoint at S2: finite reward and
-              adapt_reward over eval_episodes episodes each; seconds of
-              the frozen and of the adapted evaluation
-  9. carla_trainer  train_carla (sgsac) at the TPU record's widths (11×32
-              bf16 trunk, hidden 1024, batch 128, 84 px, 8 envs), at the
-              same episode schedule: color_easy evaluated at S2 with the
-              448-px recording, saves with the ring at S1 and S2. Every
-              loss finite, aux_loss non-zero once, every parameter and
-              Adam moment on cuda, obs (8, 9, 84, 84) uint8, train.log
-              and eval.log in the JAX schema, resume/S2 restored into
-              fresh objects bit for bit, then a call to S3 that prints
-              "Resumed from ... at step S2"; the env step's ms (median
-              of 3) split into dynamics, scene render, weather and blend,
-              its device idle share and eager ops, env steps/s,
-              updates/s, the eval's seconds
-     carla_render  the card's CARLA frames (8 envs at 84 px, env 0 at
-              448 px) against the CPU's on the same states and rain
-              noise, at reset and with storm_t = 40, at the kernel
-              phase's seg/rgb bounds
-     external_data  a DMCGB tree written with torch and numpy (.pt
-              tables, .npy clips; an mp4 clip and JPEGs where cv2
-              imports, which the line says), the offline eval CLI on
-              color_hard and video_hard with --external_data_dir (finite
-              rewards, the kernel launched, envs built from the tree),
-              and two full-width SGQN updates with a 64-px pool from the
-              tree (the pool resize on the card)
- 10. dmcgb_domains  cartpole-swingup, reacher-easy, cheetah-run,
-              finger-spin and ball_in_cup-catch at 16 envs and 84 px: reset
-              and 2 random wrapper steps (finite rewards and state, one
-              kernel launch per render), the env step's ms, its physics /
-              rewards / render split, eager ops and device idle share;
-              the kernel on each posed scene (box, cylinder and sphere
-              geoms, fixed cameras, render overrides) against the plain
-              version at the kernel phase's bounds, culled and unculled
-              bit-identical, with times and bound as in the kernel
-              phase; then the six golden
-              MuJoCo trajectories (cartpole balance and swingup,
-              reacher, cheetah, finger, ball_in_cup) on the card with
-              TF32 off, at tests/test_parity.py's bounds
-     cartpole_trainer  train --domain_name cartpole --task_name swingup
-              --algorithm sgsac at the TPU record's arguments (8 envs,
-              full width, quantile 0.98) at the same schedule: video_hard
-              evaluated at S2 with the 448-px recording, saves with the
-              ring at S1 and S2, resume/S2 restored into fresh objects bit
-              for bit, a second call that resumes to S3
-     distracting_cs_dmcgb  train.eval on distracting_cs (intensity 0.1)
-              for ball_in_cup and reacher with a full-width agent's random
-              weights saved as the checkpoint, and the composited kernel
-              frames of a reset against the plain version (6 envs at 84
-              px; env 0 at 448 px, with the plain version's float64
-              evaluation as the witness for coincident capsule end caps:
-              kernel_checks.compare_with_exact)
- 11. suite_domains  pendulum-swingup, acrobot-swingup, point_mass-hard,
-              lqr_6_2, swimmer6 (scalar path and fluid), swimmer15,
-              fish-swim and humanoid-walk (the dense path) at 16 envs
-              and 84 px, as dmcgb_domains (reset and 2 random steps, the
-              split, eager ops, idle share, the kernel on each posed
-              scene: ellipsoids, trackcom cameras, render overrides);
-              then the eight golden MuJoCo trajectories (pendulum,
-              acrobot, point_mass, lqr 2_1 and 6_2, swimmer6, fish
-              upright, humanoid stand) on the card. Fish and humanoid run
-              with TF32 matmuls allowed globally (the physics pins its
-              own to f32)
-     humanoid_trainer  train --domain_name humanoid --task_name walk
-              --algorithm sgsac at full width and 8 envs, as
-              cartpole_trainer: video_hard at S2, saves, resume/S2 bit
-              for bit, a resume to S3
- 12. grasp_domains  hopper stand and hop, manipulator bring_ball,
-              bring_peg, insert_ball, insert_peg, stacker stack_2 and
-              stack_4 (the implicit contact solver) at 16 envs and 84 px:
-              reset and 1 random wrapper step (finite state, carry and
-              rewards), the env step's ms and split, a substep's
-              device-busy ms and idle share, eager ops of a substep, of
-              the contact stage and of a control step (n_sub substeps
-              and n_sub − 1 maxima; counted in full on hopper, where the
-              stage's ops per row and sweep are measured too), the
-              kernel on each scene (boxes, 7 to 27 geoms) against the
-              plain version
-     grasp_goldens  the golden MuJoCo trajectories of hopper stand,
-              manipulator bring_ball and stacker stack_2 on the card
-              (TF32 allowed globally for the last two: the physics pins
-              its own matmuls), then the hold probe: the squeezed ball
-              held above 0.9 m after 30 control steps with positive
-              normal impulses in the carry
-     hopper_trainer  train --domain_name hopper --task_name stand
-              --algorithm sgsac at full width and 8 envs, as
-              cartpole_trainer (the solver's carry in the resumed env
-              states)
- 13. legged_domains  quadruped walk, run, escape and fetch, humanoid_CMU
-              stand and run (the dense path with the ellipsoid
-              categories, the filter servos, escape's terrain) at 16 envs
-              and 84 px, with TF32 allowed globally: reset and 2 random
-              wrapper steps (finite state and rewards, one kernel launch
-              per render), the env step's ms split into physics,
-              rewards, the terrain pass (escape) and render, eager ops
-              of a substep, a control step, the terrain pass and an env
-              step, the device idle share of an env step and the terrain
-              pass's device-busy ms, reset s, the kernel on each scene
-              against the plain version
-     legged_goldens  the golden MuJoCo trajectories of quadruped walk
-              and humanoid_CMU stand on the card and on the CPU: the
-              card's within tests/test_parity.py's bounds and within a
-              tenth of each bound of the CPU's
-     escape_trainer  train --domain_name quadruped --task_name escape
-              --algorithm sgsac at full width and 8 envs, as
-              cartpole_trainer; resume/S2 restores the terrains with
-              every other leaf bit for bit
- 14. composer_domain  composer_demo's pendula (the composer layer: two
-              entities, nl 2) at 16 envs and 84 px as dmcgb_domains
-              (reset and 2 steps, the split, eager ops, idle share, the
-              kernel on the posed scene), and the card against the CPU
-              after the same start and 4 control steps
-     composer_trainer  train --domain_name composer_demo --task_name
-              pendula --algorithm sgsac at full width and 8 envs, as
-              cartpole_trainer
-     mjcf_physics  the MJCF compiler and `Physics` on three inline
-              models (tests/mjcf_models.py: the box cart, the
-              defaults/childclass model, the welded free root): step(10)
-              on the card against the CPU, ms and eager ops a substep,
-              render through the kernel against the plain version; walker
-              with a box and with an ellipsoid torso in the floor, 10
-              substeps under the explicit penalty, card against CPU
-     spill_trainer  walker SAC at full width with --replay_spill host (a
-              3-episode device ring behind a 10-episode host ring):
-              episodes spilled and slots refreshed, seconds per exchange,
-              bytes each way, finite losses
-     hostio   the host-I/O library built from native/hostio.cpp, 8
-              448-px frames through png_write_batch read back equal, its
-              write time beside the pure-Python writer's
- 15. mesh     data parallelism (parallel/mesh.py): one spawn of 2 ranks
-              sharing the card over gloo (the spawn's seconds) runs, at
-              the published widths: 3 sgsac updates at batch 128 from one
-              host-filled 16-env ring (the ranks' states bit-identical,
-              the weights under the Adam rule against 2 thread ranks of
-              this process, each computing its 64 rows as a spawned rank
-              does; after 1 update, and after 3 with the trunk in f32,
-              against one process; ms per update at 2 ranks and at 1, the
-              collectives' calls, bytes and ms per update), the same
-              updates on one spawned rank over NCCL; walker at 16 envs,
-              8 per rank, one reset and 4 wrapper steps (each rank's
-              frames against the plain version at the kernel phase's
-              bounds, its states against
-              the matching slice of one unsharded run; ms per env step
-              per rank, aggregate env steps/s against one rank at 16 envs,
-              idle share, launches per rank); run_training on cartpole SAC
-              through mesh_data_axis 2 (eval, saves with the ring; logs
-              once, replicas equal), then a one-rank resume of its
-              checkpoint
- 16. the `kernels` line (launches by path: trainer, sgsac_trainer, eval,
-     offline_eval, algorithms, pad_trainer, pad_offline_eval,
-     external_data, dmcgb_domains, cartpole_trainer,
-     distracting_cs_dmcgb, suite_domains, humanoid_trainer,
-     grasp_domains, hopper_trainer, legged_domains, escape_trainer,
-     composer_domain, composer_trainer, mjcf_physics, spill_trainer, and
-     per rank mesh_env and mesh_loop; the kernel's times on each domain's
-     scene), then
-     the card's nvidia-smi line, then {"ok": true, "device": {...}} as
-     the last line. The work dir build/chip_smoke_logs/ is emptied first.
+Each phase prints one JSON line with its `ok` and the run's seconds so far
+(`elapsed_s`); the first phase that fails ends the run with exit code 1.
+The port's rates are measured by `python3 benchmark/run.py`, not here. The
+only times taken here are the ray-cast kernel's (the kernel phase, each
+domain's `kernel` row, the `kernels` line): no benchmark cell measures the
+hand kernel alone. Counts that show a path ran stay in the lines: kernel
+launches, the update graphs' captures, replays and eager updates, the
+collectives' calls and bytes.
 
-It imports torch and the port only. It exits non-zero, before printing any
-result, without a CUDA device or outside a checkout of the repository; any
-failed check ends the run with a non-zero exit.
+  device     torch/CUDA versions, the card (nvidia-smi name, power limit)
+  build      nvcc build of csrc/raycast.cu for sm_90a; each
+             instantiation's registers per thread and shared memory
+  kernel     the kernel on walker scenes (16 envs at 84 and 100 px, 64
+             and 768 envs at 84 px, one 448-px frame): the culled and
+             unculled instantiations bit-identical in rgb, seg and depth,
+             the culled one against its plain PyTorch version (seg
+             mismatches ≤ 5 pixels a frame; on seg-agreeing pixels ≤ 10
+             pixels off by > 2 levels and none by > 32); then a camera
+             inside a bounding sphere. Times: CUDA events over 20 calls;
+             the device's, 20 calls queued behind a spin kernel (culled,
+             unculled, unculled, culled); the bound of the operations
+             (`raycast.ops_needed`) or bytes these inputs need
+  env        walker-walk, 16 envs, reset and 3 random steps: obs (16, 9,
+             84, 84) uint8 on the card, finite rewards, one kernel launch
+             per rendered batch
+  trainer    run_training SAC at the published widths (11×32 bf16 trunk,
+             hidden 1024, batch 128, 84 px, 16 envs), episodes of EP
+             wrapper steps to S2: finite losses, train.log, every
+             parameter on the card, the kernel launched
+  sgsac_trainer  the flagship: sgsac evaluated at S2 on the train env,
+             color_hard, video_easy and video_hard with the 448-px
+             recording, checkpoints with the ring at S1 and S2: every loss
+             finite and aux_loss non-zero once, the whole agent state on
+             the card, eval.log in the JAX schema, the recorded episode,
+             the kernel launched in training and in every eval mode
+  resume     resume/S2 restored into fresh objects bit for bit (weights,
+             targets, Adam moments and counts, decoder, ring, env states,
+             both generators, the loop counters); the SGQN mask's pixel
+             share within 0.04-0.25 (the exact 0.95 quantile keeps ~5%
+             plus ties); a second run_training prints "Resumed from ... at
+             step S2" and logs finite losses at S3
+  offline_eval  train.eval on video_hard and on distracting_cs 0.1
+  eval_render  composited kernel frames against the plain version in
+             color_hard, video_easy, video_hard and distracting_cs (6 envs
+             at 84 px, env 0 at 448 px); the env's frame equal to the
+             kernel's composite
+  algorithms  rad, drq, svea, curl, pad, soda, and sac with the critic's
+             AdamW, at full width on kernel-rendered rings: 10 updates,
+             finite losses, aux_loss non-zero once for curl/pad/soda, the
+             state on the card, the trunk moved
+  pad_trainer  PAD at 100 px to S3 with the collapse guard and a collapse
+             injected at S2 (SGQN_FAULT_INJECT_COLLAPSE): exactly one
+             rollback S2 → S1, a non-empty --profile_dir trace
+  pad_offline_eval  frozen and test-time adapted rewards, finite
+  carla_trainer  train_carla sgsac at 8 envs and full width: finite
+             losses, obs, train.log and eval.log in the JAX schema, the
+             448-px recording, resume/S2 bit for bit, a resume to S3
+  carla_render  the card's CARLA frames against the CPU's at reset and in
+             a storm, at the kernel phase's bounds
+  external_data  a DMCGB tree written here; the offline eval from it on
+             color_hard and video_hard; an SGQN update with a 64-px pool
+  dmcgb_domains, suite_domains  each domain at 16 envs: reset and 2
+             random steps finite, one launch per render, the kernel on the
+             posed scene (culled against unculled, against the plain
+             version); then the golden MuJoCo trajectories on the card at
+             tests/test_parity.py's bounds (fish and humanoid with TF32
+             allowed globally: the physics pins its own matmuls)
+  grasp_domains, legged_domains  the same for the grasp tasks (1 step,
+             the solver's carry finite) and the legged ones (TF32 allowed,
+             escape's terrain drawn)
+  grasp_goldens  3 goldens, then the hold probe: the squeezed ball above
+             0.9 m after 30 control steps, normal impulses in the carry
+  legged_goldens  2 goldens on the card and the CPU, the card's deviation
+             within a tenth of each bound of the CPU's
+  cartpole_trainer, humanoid_trainer, hopper_trainer, escape_trainer,
+  composer_trainer  SGQN through the training CLI at 8 envs and full
+             width: video_hard at S2, resume/S2 bit for bit (escape's
+             terrains too), a resume to S3
+  distracting_cs_dmcgb  the offline eval on ball_in_cup and reacher at
+             intensity 0.1; composited frames against the plain version
+             (at 448 px with the float64 witness)
+  composer_domain  composer_demo as dmcgb_domains; card against CPU after
+             4 control steps
+  mjcf_physics  three inline MJCF models through `Physics`, card against
+             CPU, `render` through the kernel; walker with a box and with
+             an ellipsoid torso, 10 substeps, card against CPU
+  spill_trainer  walker SAC with --replay_spill host: episodes spilled,
+             slots refreshed, finite losses
+  hostio     the host-I/O library built with g++; 8 448-px PNGs read back
+             equal
+  mesh       2 ranks sharing the card over gloo: 1, 3 and 3 f32-trunk
+             sgsac updates at batch 128, the ranks bit-identical; the Adam
+             rule against one process (1 bf16, 3 f32) and against 2 thread
+             ranks of this process (3 bf16); the 3 bf16 updates on one
+             NCCL rank; walker at 8 envs a rank (frames against the plain
+             version, states against the unsharded slice); cartpole SAC
+             through mesh_data_axis 2, then a one-rank resume
+
+Then the `kernels` line (launches by path, the kernel's times at each
+shape and domain scene), the card's nvidia-smi line, and
+{"ok": true, "device": {...}} last. The work dir build/chip_smoke_logs/ is
+emptied first. It imports torch and the port only. It exits non-zero,
+before printing any result, without a CUDA device or outside a checkout
+of the repository.
 """
 
 import json
@@ -278,12 +138,6 @@ def emit(obj):
     if "phase" in obj:
         obj["elapsed_s"] = time.time() - T0
     print(json.dumps(obj), flush=True)
-
-
-def _idle(busy, ms):
-    """The device's idle share of `ms` with `busy` ms of kernels; None
-    where busy was not measured."""
-    return None if busy is None else 1 - busy / ms
 
 
 SHAPES = ((16, 84), (16, 100), (64, 84), (768, 84), (1, 448))
@@ -401,62 +255,8 @@ def _differing_leaves(a, b) -> list:
                   if k not in fa or k not in fb or not same(fa[k], fb[k]))
 
 
-def stage_breakdown(agent, st, buf, rst, kc, reps=5):
-    """Each stage of one sgsac update run alone on the trained state:
-    {stage: {"ms": wall per call with the profiler off, "device_ms":
-    device-busy ms per call}}. The aux stage runs at an even step."""
-    import torch
-
-    B, A = agent.cfg.batch_size, agent.action_dim
-    batch = agent.sample_batch(buf, rst, st, {})
-    ctx = agent.update_context(st, batch, {})
-    noise = torch.randn((B, A), device=DEV)
-    step = st.step
-    st.step = 2 * (step // 2)
-    stages = {
-        "sample": lambda: agent.sample_batch(buf, rst, st, {}),
-        "mask": lambda: agent.update_context(st, batch, {}),
-        "critic": lambda: agent.update_critic(st, batch, noise, ctx, {}),
-        "actor": lambda: agent.update_actor_and_alpha(st, batch, noise),
-        "targets": lambda: agent.soft_update_targets(st),
-        "aux": lambda: agent.update_aux(st, batch, buf, rst, {}, ctx),
-    }
-    out = {}
-    for name, fn in stages.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        out[name] = {"ms": (time.time() - t0) * 1e3 / reps,
-                     "device_ms": kc.profiled(fn, 3)[1]}
-    st.step = step
-    return out
-
-
 def _finite(x) -> bool:
     return x == x and abs(x) < float("inf")
-
-
-def _to_replays(upd, agent, run=4, most=32):
-    """Updates until `run` in a row are graph replays (each key met has
-    been warmed and captured), so that the updates timed next are the
-    replays the run's later updates are. The graph counts before the
-    timing."""
-    stats, n = agent.graph_stats, 0
-    for _ in range(most):
-        if n == run:
-            break
-        c, r = stats["captures"], stats["replays"]
-        upd()
-        n = n + 1 if (stats["replays"] > r and stats["captures"] == c) else 0
-    return dict(stats)
-
-
-def _graph_delta(before, agent):
-    """The graph counts since `before`."""
-    return {k: agent.graph_stats[k] - before[k] for k in before}
 
 
 def flagship(cfg):
@@ -475,11 +275,8 @@ def sgsac_trainer_phase(cfg, smi, run_training, raycast):
     import numpy as np
 
     cfg = flagship(cfg)
-    E = cfg.num_envs
     raycast.launches = 0
-    t0 = time.time()
     out = run_training(cfg)
-    train_s = time.time() - t0
     tm, st = out["timing"], out["agent_state"]
     ev = tm["eval"]
     eval_launches = sum(e["launches"] for e in ev.values())
@@ -512,82 +309,29 @@ def sgsac_trainer_phase(cfg, smi, run_training, raycast):
           and finite and all(nonzero.values()) and on_cuda and launches > 0
           and eval_ok and ckpt_ok and video_ok
           and all(e["launches"] > 0 for e in ev.values()))
-    eval_s = sum(e["s"] for e in ev.values())
     emit({"phase": "sgsac_trainer", "ok": ok, "card": smi,
           "config": {k: getattr(cfg, k) for k in (
               "eval_mode", "eval_freq", "eval_episodes", "save_freq",
               "checkpoint_replay", "save_video", "eval_render_size")},
-          "seconds": train_s, "episodes": out["episodes"],
+          "episodes": out["episodes"],
           "kernel_launches": launches, "eval_kernel_launches": eval_launches,
           "params_on_cuda": on_cuda,
           "losses_finite": finite, "losses_nonzero_once": nonzero,
-          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
           "update_graphs": tm["update_graphs"],
-          "env_steps_per_s": (tm["random_steps"] * E
-                              / max(tm["random_s"], 1e-9)),
-          "update_chunk_s": tm["update_chunk_s"],
           "eval_log": erows, "eval_ok": eval_ok,
-          "eval_s_by_mode": {m: e["s"] for m, e in ev.items()},
           "eval_launches_by_mode": {m: e["launches"] for m, e in ev.items()},
-          "eval_s": eval_s,
-          "eval_env_steps_per_s": (sum(e["env_steps"] for e in ev.values())
-                                   / max(eval_s, 1e-9)),
           "checkpoints": saved, "checkpoints_ok": ckpt_ok,
-          "save_s_per_save": tm["save_s"] / max(tm["saves"], 1),
           "video_shape": list(frames.shape), "video_ok": video_ok,
           "final_metrics": out["final_metrics"]})
     return ok, out, launches, eval_launches
-
-
-def sgsac_profile_phase(cfg, out, smi, kc):
-    """The sgsac update profile on the flagship run's trained state and
-    filled ring (it updates that state in place, so it runs after the
-    resume phase has compared the state with the checkpoint)."""
-    import torch
-
-    from sgqn_carla_tpu_torch.ops import guided_backprop as gb
-
-    st, agent = out["agent_state"], out["agent"]
-    buf, rst = out["replay"]
-    upd = lambda: agent.update(st, rst, buf)
-    g0 = _to_replays(upd, agent)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(10):
-        upd()
-    torch.cuda.synchronize()
-    ms_upd = (time.time() - t0) * 100
-    timed = _graph_delta(g0, agent)
-    wall, busy, top = kc.profiled(upd, 5)
-    batch = agent.sample_batch(buf, rst, st, {})
-    mask = agent.update_context(st, batch, {})["mask"]
-    share = float(mask.float().mean())
-    mask_ms = kc.cuda_ms(lambda: agent.update_context(st, batch, {}), reps=10)
-    grad = agent.attribution_grad(st.params, batch.obs.float(), batch.action)
-    attr = grad.reshape(-1, 3, 3, 84, 84).abs().amax(2).reshape(-1, 84 * 84)
-    q_ms = kc.cuda_ms(lambda: gb._row_quantile(attr, 0.95))
-    lib_ms = kc.cuda_ms(lambda: torch.quantile(attr, 0.95, dim=-1))
-    same = torch.equal(gb._row_quantile(attr, 0.95),
-                       torch.quantile(attr, 0.95, dim=-1))
-    stages = stage_breakdown(agent, st, buf, rst, kc)
-    ok = 0.04 <= share <= 0.25
-    emit({"phase": "sgsac_update_profile", "ok": ok, "card": smi,
-          "batch_size": cfg.batch_size, "ms_per_update": ms_upd,
-          "profiled_ms_per_update": wall, "device_busy_ms": busy,
-          "device_idle_share": _idle(busy, ms_upd), "top_kernels_ms": top,
-          "graphs_before": g0, "graphs_timed": timed,
-          "mask_pixel_share": share, "mask_step_ms": mask_ms,
-          "row_quantile_shape": list(attr.shape), "row_quantile_ms": q_ms,
-          "torch_quantile_ms": lib_ms,
-          "torch_quantile_bit_identical": same, "stages": stages})
-    return ok
 
 
 def resume_phase(cfg, out, smi, run_training):
     """Restore resume/S2 into fresh objects on the card: every tensor,
     generator state and counter bit-identical to the trainer's final
     state; three more updates from each (reported, not gated: cuDNN's
-    backward need not be deterministic); then run_training to step S3."""
+    backward need not be deterministic); the SGQN mask's pixel share on
+    the trained state; then run_training to step S3."""
     import contextlib
     import io
 
@@ -612,11 +356,7 @@ def resume_phase(cfg, out, smi, run_training):
     states, obs = VectorEnv(env, cfg.num_envs).reset(gen)
     like = loop.loop_state(agent.init_state(cfg.seed + 1), gen, replay=(
         states, obs, buf.add_reset(buf.init(), obs)))
-    torch.cuda.synchronize()
-    t0 = time.time()
     restored = ckpt.restore(rdir, S2, like)
-    torch.cuda.synchronize()
-    restore_s = time.time() - t0
     final = loop.loop_state(out["agent_state"], out["gen"], **out["counters"],
                             replay=(*out["env_state"], out["replay"][1]))
     ff = ckpt.flatten(final)
@@ -639,12 +379,15 @@ def resume_phase(cfg, out, smi, run_training):
     pf, pr = ckpt.flatten(a_fin.params), ckpt.flatten(a_res.params)
     cont_diff = max(float((pf[k].float() - pr[k].float()).abs().max())
                     for k in pf)
+    # the mask's pixel share: the exact 0.95 quantile keeps ~5% plus ties
+    batch = upd_agent.sample_batch(ring[0], ring[1], a_fin, {})
+    share = float(upd_agent.update_context(a_fin, batch, {})["mask"].float()
+                  .mean())
+    mask_ok = 0.04 <= share <= 0.25
     # a second invocation of the trainer resumes from its work dir
     text = io.StringIO()
-    t0 = time.time()
     with contextlib.redirect_stdout(text):
         out2 = run_training(cfg.replace(train_steps=S3))
-    resumed_s = time.time() - t0
     sys.stdout.write(text.getvalue())
     with open(os.path.join(wd, "train.log")) as f:
         rows = {r["step"]: r for r in map(json.loads, f)}
@@ -652,21 +395,19 @@ def resume_phase(cfg, out, smi, run_training):
     losses_ok = all(_finite(last.get(k, float("nan"))) for k in (
         "critic_loss", "actor_loss", "alpha_loss", "aux_loss"))
     said = f"Resumed from {rdir} at step {S2}" in text.getvalue()
-    ok = identical and said and out2["resumed_at"] == S2 and losses_ok
+    ok = (identical and mask_ok and said and out2["resumed_at"] == S2
+          and losses_ok)
     emit({"phase": "resume", "ok": ok, "card": smi,
           "bit_identical": identical, "restored_on_card": on_card,
           "leaves_compared": len(ff), "leaves_by_group": groups,
           "differing_leaves": differ[:10],
-          "save_s_per_save": (out["timing"]["save_s"]
-                              / max(out["timing"]["saves"], 1)),
-          "restore_s": restore_s,
           "resume_checkpoint_bytes": os.path.getsize(
               os.path.join(rdir, f"{S2}.pt")),
           "model_checkpoint_bytes": os.path.getsize(
               os.path.join(wd, "model", f"{S2}.pt")),
           "continuation_3_updates_max_abs_param_diff": cont_diff,
+          "mask_pixel_share": share, "mask_share_ok": mask_ok,
           "printed_resumed": said, "resumed_at": out2["resumed_at"],
-          "resumed_run_s": resumed_s,
           "resumed_final_losses_finite": losses_ok, "resumed_final_row": last})
     return ok
 
@@ -691,9 +432,7 @@ def offline_eval_phase(cfg, smi, raycast):
             ("distracting_cs", "distracting_cs_0.1",
              ["--distracting_cs_intensity", "0.1"])):
         raycast.launches = 0
-        t0 = time.time()
         reward = eval_cli.main(argv + ["--eval_mode", mode] + extra)
-        s = time.time() - t0
         launches += raycast.launches
         with open(os.path.join(wd, f"eval_{tag}.json")) as f:
             payload = json.load(f)
@@ -702,7 +441,7 @@ def offline_eval_phase(cfg, smi, raycast):
                 and all(_finite(r) for r in rw) and raycast.launches > 0
                 and bool(np.isclose(payload["reward"], np.mean(rw))))
         ok &= good
-        res[mode] = {"ok": good, "seconds": s, "reward": reward,
+        res[mode] = {"ok": good, "reward": reward,
                      "episode_rewards": rw, "kernel_launches": raycast.launches}
     emit({"phase": "offline_eval", "ok": ok, "card": smi, **res})
     return ok, launches
@@ -780,24 +519,19 @@ def _filled_ring(cfg, dev):
     return env, buf, buf.add_reset(rst, obs)
 
 
-def algorithms_phase(cfg, smi, raycast, kc):
+def algorithms_phase(cfg, smi, raycast):
     """Every variant at full width on the card: 10 updates on a ring
     filled by a real rollout (one 100-px ring for rad/curl/pad/soda, one
-    84-px ring for drq/svea/sac), then 10 timed updates and 4 profiled.
-    Returns (ok, the kernel launches of the ring fills)."""
+    84-px ring for drq/svea/sac). Returns (ok, the kernel launches of the
+    ring fills)."""
     import torch
 
     from sgqn_carla_tpu_torch.agents import make_agent
 
     dev = torch.device(DEV)
     raycast.launches = 0
-    rings, fill_s = {}, {}
-    for size, algo in ((100, "rad"), (84, "sac")):
-        t0 = time.time()
-        rings[size] = _filled_ring(cfg.replace(algorithm=algo).finalize(),
-                                   dev)
-        torch.cuda.synchronize()
-        fill_s[size] = time.time() - t0
+    rings = {size: _filled_ring(cfg.replace(algorithm=algo).finalize(), dev)
+             for size, algo in ((100, "rad"), (84, "sac"))}
     launches = raycast.launches
     ok, res = launches > 0, {}
     for algo, extra in VARIANTS:
@@ -815,31 +549,18 @@ def algorithms_phase(cfg, smi, raycast, kc):
                   or any(v != 0.0 for v in vals.get("aux_loss", [])))
         moved = not torch.equal(w0, st.params["trunk"].shared.convs[0].weight)
         on_cuda = _on_cuda(st)
-        upd = lambda: agent.update(st, rst, buf)
-        g0 = _to_replays(upd, agent)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(10):
-            upd()
-        torch.cuda.synchronize()
-        ms_upd = (time.time() - t0) * 100
-        timed = _graph_delta(g0, agent)
-        _, busy, top = kc.profiled(upd, 4)
         good = finite and aux_ok and moved and on_cuda
         ok &= good
         res[algo] = {"ok": good, "losses_finite": finite,
                      "aux_loss_nonzero_once": aux_ok, "trunk_moved": moved,
                      "state_on_cuda": on_cuda, "image_size": c.image_size,
-                     "ms_per_update": ms_upd, "device_busy_ms": busy,
-                     "device_idle_share": _idle(busy, ms_upd),
-                     "graphs_before": g0, "graphs_timed": timed,
-                     "top_kernels_ms": top,
+                     "update_graphs": dict(agent.graph_stats),
                      "last_losses": {k: v[-1] for k, v in vals.items()
                                      if k.endswith("loss")}}
     emit({"phase": "algorithms", "ok": ok, "card": smi,
           "batch_size": cfg.batch_size,
           "soda_batch_size": cfg.soda_batch_size,
-          "ring_fill_s": fill_s, "kernel_launches": launches, **res})
+          "kernel_launches": launches, **res})
     return ok, launches
 
 
@@ -860,9 +581,7 @@ def pad_trainer_phase(cfg, smi, run_training, raycast):
     raycast.launches = 0
     os.environ["SGQN_FAULT_INJECT_COLLAPSE"] = str(S2)
     try:
-        t0 = time.time()
         out = run_training(cfg)
-        train_s = time.time() - t0
     finally:
         del os.environ["SGQN_FAULT_INJECT_COLLAPSE"]
     launches = raycast.launches
@@ -883,22 +602,15 @@ def pad_trainer_phase(cfg, smi, run_training, raycast):
           and len(erows) == 1
           and all(_finite(v) for v in erows[0].values())
           and all(_finite(v) for v in out["final_metrics"].values()))
-    E = cfg.num_envs
     emit({"phase": "pad_trainer", "ok": ok, "card": smi,
           "config": {k: getattr(cfg, k) for k in (
               "algorithm", "image_size", "image_crop_size", "num_envs",
               "episode_length", "init_steps", "train_steps", "eval_mode",
               "save_freq", "guard_collapse")},
-          "seconds": train_s, "episodes": out["episodes"],
+          "episodes": out["episodes"],
           "rollbacks": out["rollbacks"], "rollback_records": rolls,
           "logged_steps": steps, "traces": traces, "trace_bytes": trace_bytes,
-          "kernel_launches": launches,
-          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
-          "update_graphs": tm["update_graphs"],
-          "env_steps_per_s": (tm["random_steps"] * E
-                              / max(tm["random_s"], 1e-9)),
-          "update_chunk_s": tm["update_chunk_s"],
-          "eval_s_by_mode": {m: e["s"] for m, e in tm["eval"].items()},
+          "kernel_launches": launches, "update_graphs": tm["update_graphs"],
           "eval_log": erows, "final_metrics": out["final_metrics"]})
     return ok, cfg, launches
 
@@ -906,9 +618,7 @@ def pad_trainer_phase(cfg, smi, run_training, raycast):
 def pad_offline_eval_phase(cfg, smi, raycast):
     """`train.eval --algorithm pad --eval_mode video_hard` on the PAD
     run's checkpoint at S2: the frozen policy's and the test-time adapted
-    rewards over eval_episodes episodes each, and the seconds of each."""
-    import torch
-
+    rewards over eval_episodes episodes each."""
     from sgqn_carla_tpu_torch.train import eval as eval_cli
 
     argv = ["--domain_name", "walker", "--task_name", "walk", "--algorithm",
@@ -918,27 +628,8 @@ def pad_offline_eval_phase(cfg, smi, raycast):
               "num_shared_layers", "num_filters", "hidden_dim",
               "projection_dim", "precision"):
         argv += [f"--{k}", str(getattr(cfg, k))]
-    spent = {}
-
-    def timed(name, fn):
-        def run(*a, **kw):
-            t0 = time.time()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent[name] = time.time() - t0
-            return out
-        return run
-
-    frozen, adapted = eval_cli.evaluate, eval_cli.evaluate_pad
-    eval_cli.evaluate = timed("frozen_s", frozen)
-    eval_cli.evaluate_pad = timed("adapted_s", adapted)
     raycast.launches = 0
-    try:
-        t0 = time.time()
-        eval_cli.main(argv)
-        call_s = time.time() - t0
-    finally:
-        eval_cli.evaluate, eval_cli.evaluate_pad = frozen, adapted
+    eval_cli.main(argv)
     launches = raycast.launches
     wd = os.path.join(cfg.log_dir, "walker_walk", "pad", str(cfg.seed))
     with open(os.path.join(wd, "eval_video_hard.json")) as f:
@@ -951,7 +642,7 @@ def pad_offline_eval_phase(cfg, smi, raycast):
           and _finite(out["reward"]) and _finite(out["adapt_reward"])
           and launches > 0)
     emit({"phase": "pad_offline_eval", "ok": ok, "card": smi,
-          "call_s": call_s, **spent, "kernel_launches": launches,
+          "kernel_launches": launches,
           "reward": out["reward"], "adapt_reward": out["adapt_reward"],
           "episode_rewards": out["episode_rewards"],
           "adapt_episode_rewards": out["adapt_episode_rewards"]})
@@ -962,101 +653,22 @@ def pad_offline_eval_phase(cfg, smi, raycast):
 RECORD_E = 8  # the env count of the TPU records (CARLA, cartpole)
 
 
-def _count_ops(fn) -> int:
-    """Eager torch operations of fn() (each is a kernel launch on the
-    card), counted at the dispatcher."""
-    import collections
-
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n[str(func)] += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count() as c:
-        fn()
-    return sum(c.n.values())
-
-
-def carla_env_split(env, blend_env, states, kc):
-    """Where a CARLA env step's time goes at RECORD_E envs: ms of the whole
-    step, of its dynamics (action_repeat substeps), of the scene render,
-    of the weather pass on the rendered frames and of the color_easy
-    blend (on `blend_env`), each the median of 3; the device-busy share of
-    a step; its eager op count."""
-    import torch
-
-    from sgqn_carla_tpu_torch.envs import carla_twin as ct
-
-    E = states.yaw.shape[0]
-    a = torch.rand((E, 2), device=DEV) * 2 - 1
-    respawn = torch.rand((E, env.action_repeat), device=DEV) * 6.28
-
-    def dynamics():
-        s = states
-        for k in range(env.action_repeat):
-            s, _ = env._sim_substep(s, a, respawn[:, k])
-        return s
-
-    def timed(fn, n=3):
-        out = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.time() - t0) * 1e3)
-        return statistics.median(out)
-
-    step = lambda: env.step(states, a)
-    scene = lambda: env.render_scene(states)
-    rgb, depth, _ = scene()
-    noise = torch.rand(depth.shape, device=DEV)
-    weather = lambda: ct._weather(states, rgb, depth, noise)
-    blend = lambda: blend_env._maybe_blend(states, states.frames)
-    step()
-    parts = {"step": timed(step), "dynamics": timed(dynamics),
-             "render": timed(scene), "weather": timed(weather),
-             "blend": timed(blend)}
-    wall, busy, top = kc.profiled(step, 3)
-    return {"ms_per_env_step": parts["step"], "breakdown_ms": parts,
-            "device_busy_ms": busy,
-            "device_idle_share": _idle(busy, parts["step"]),
-            "top_kernels_ms": top,
-            "eager_ops_per_env_step": _count_ops(step),
-            "eager_ops": {"dynamics": _count_ops(dynamics),
-                          "render": _count_ops(scene),
-                          "weather": _count_ops(weather),
-                          "blend": _count_ops(blend)}}
-
-
-def carla_trainer_phase(cfg, smi, kc):
+def carla_trainer_phase(cfg, smi):
     """train_carla at the TPU record's widths (sgsac, 11×32 bf16 trunk,
     hidden 1024, batch 128, 84 px, 8 envs), cut to episodes of EP wrapper
     steps: warm-up to S1, updates to S2, color_easy evaluated at S2 with
     the 448-px recording, saves with the ring at S1 and S2; then resume/S2
     restored into fresh objects bit for bit, and a second call that
-    resumes at S2 and trains to S3. Prints the env step's time split,
-    idle share and eager ops, env steps/s, updates/s and the eval's
-    seconds."""
+    resumes at S2 and trains to S3."""
     import numpy as np
     import torch
 
     from sgqn_carla_tpu_torch.core.config import parse_args
     from sgqn_carla_tpu_torch.envs.carla_twin import CarlaState, make_carla_env
-    from sgqn_carla_tpu_torch.train import loop
     from sgqn_carla_tpu_torch.train import train_carla
 
-    start = time.time()
     log_dir = os.path.join(cfg.log_dir, "carla")
-    t0 = time.time()
     out = train_carla.main(carla_argv(cfg, log_dir))
-    train_s = time.time() - t0
     wd, tm, st = out["work_dir"], out["timing"], out["agent_state"]
     with open(os.path.join(wd, "train.log")) as f:
         rows = [json.loads(line) for line in f]
@@ -1084,46 +696,30 @@ def carla_trainer_phase(cfg, smi, kc):
     # resume/S2 into fresh objects made from another seed
     run_cfg = parse_args(carla_argv(cfg, log_dir)).replace(
         domain_name="carla", task_name="drive")
-    dev = torch.device(DEV)
-    differ, restore_s, restored = restore_check(run_cfg, out,
-                                                make_carla_env)
+    differ, restored = restore_check(run_cfg, out, make_carla_env)
     on_card = _on_cuda(st) and restored["states"].gen.device.type == DEV
-    # the env step's split, on the trained run's env states
-    split = carla_env_split(
-        loop.make_run_env(run_cfg, dev, env_factory=make_carla_env),
-        loop.make_run_env(run_cfg, dev, "color_easy", env_factory=make_carla_env),
-        states, kc)
     # a second call resumes at S2 and trains to S3
     resumed, last = resumed_call(train_carla.main,
                                  carla_argv(cfg, log_dir, train_steps=S3), wd)
-    ev = tm["eval"]
     ok = (finite and aux_nonzero and obs_ok and schema_ok and video_ok
           and on_card and not differ and resumed
           and all(_finite(last[k]) for k in losses))
     emit({"phase": "carla_trainer", "ok": ok, "card": smi,
-          "phase_s": time.time() - start,
           "config": {"algorithm": "sgsac", "num_envs": RECORD_E,
                      "episode_length": 4 * EP, "init_steps": S1,
                      "train_steps": S2, "eval_mode": "color_easy",
                      "trunk": "11x32 bf16", "hidden_dim": 1024,
                      "batch_size": 128},
-          "seconds": train_s, "episodes": out["episodes"],
+          "episodes": out["episodes"],
           "losses_finite": finite, "aux_loss_nonzero_once": aux_nonzero,
           "obs_ok": obs_ok, "schema_ok": schema_ok, "video_ok": video_ok,
           "state_on_cuda": on_card, "resume_bit_identical": not differ,
-          "differing_leaves": differ[:10], "restore_s": restore_s,
+          "differing_leaves": differ[:10],
           "resume_bytes": tm["resume_bytes"],
           "resumed_to_S3": resumed, "resumed_final_row": last,
-          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
           "update_graphs": tm["update_graphs"],
-          "env_steps_per_s": (tm["random_steps"] * RECORD_E
-                              / max(tm["random_s"], 1e-9)),
-          "update_chunk_s": tm["update_chunk_s"],
-          "update_chunk_ms_per_wrapper_step": (
-              1e3 * tm["update_chunk_s"] / max(tm["update_chunk_steps"], 1)),
-          "eval_s_by_mode": {m: e["s"] for m, e in ev.items()},
           "eval_log": erows, "episode_rewards": [
-              r["episode_reward"] for r in rows], **split})
+              r["episode_reward"] for r in rows]})
     return ok
 
 
@@ -1137,7 +733,6 @@ def carla_render_phase(smi, kc):
     from sgqn_carla_tpu_torch.envs.base import env_slice
     from sgqn_carla_tpu_torch.envs.carla_twin import make_carla_env
 
-    start = time.time()
     envs = {d: make_carla_env(image_size=84, seed=0, device=d)
             for d in (DEV, "cpu")}
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -1162,11 +757,7 @@ def carla_render_phase(smi, kc):
             good, cmp = kc.compare_frames(out[DEV], out["cpu"])
             ok &= good
             res[f"storm{storm_t:+.0f}_{size}px"] = {"ok": good, **cmp}
-    s = states[DEV]
-    card_ms = kc.cuda_ms(lambda: envs[DEV].render_scene(s), reps=5)
-    emit({"phase": "carla_render", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, **res,
-          "scene_render_ms_8x84": card_ms})
+    emit({"phase": "carla_render", "ok": ok, "card": smi, **res})
     return ok
 
 
@@ -1230,7 +821,6 @@ def external_data_phase(cfg, smi, raycast):
     from sgqn_carla_tpu_torch.train import eval as eval_cli
     from sgqn_carla_tpu_torch.train import loop
 
-    start = time.time()
     tree = os.path.join(cfg.log_dir, "dmcgb_tree")
     has_cv2 = _write_dmcgb_tree(tree)
     reads = {}
@@ -1249,9 +839,7 @@ def external_data_phase(cfg, smi, raycast):
     ok, res, launches = True, {}, 0
     for mode in ("color_hard", "video_hard"):
         raycast.launches = 0
-        t0 = time.time()
         eval_cli.main(argv + ["--eval_mode", mode])
-        s = time.time() - t0
         launches += raycast.launches
         with open(os.path.join(wd, f"eval_{mode}.json")) as f:
             rw = json.load(f)["episode_rewards"]
@@ -1266,7 +854,7 @@ def external_data_phase(cfg, smi, raycast):
         good = (len(rw) == cfg.eval_episodes and all(_finite(r) for r in rw)
                 and raycast.launches > 0 and from_tree)
         ok &= good
-        res[mode] = {"ok": good, "seconds": s, "episode_rewards": rw,
+        res[mode] = {"ok": good, "episode_rewards": rw,
                      "env_from_tree": from_tree,
                      "kernel_launches": raycast.launches}
     # one full-width SGQN update with a 64-px pool: the resize on the card
@@ -1301,7 +889,6 @@ def external_data_phase(cfg, smi, raycast):
               and float(m["aux_loss"]) + float(m2["aux_loss"]) > 0)
     ok &= upd_ok
     emit({"phase": "external_data", "ok": ok, "card": smi,
-          "phase_s": time.time() - start,
           "cv2": ("imported: mp4 clip and JPEG tree written and read"
                   if has_cv2 else "not importable here: the tree holds .pt"
                   " tables and .npy clips only, the pool .npy images"),
@@ -1320,27 +907,17 @@ GOLDENS = (("cartpole", "balance"), ("cartpole", "swingup"),
            ("ball_in_cup", "catch"))
 
 
-def _timed_ms(fn, n=1):
-    """Median wall ms of n calls of fn(), the card synchronised."""
-    import torch
-
-    out = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.time() - t0) * 1e3)
-    return statistics.median(out)
+def _posed_kernel_row(raycast, kc, model, scene):
+    """kernel_row on an env's posed scene (render overrides applied)."""
+    params = raycast._pack_params(scene["Rg"], scene["pg"], scene["app"],
+                                  scene["cam_pos"], scene["cam_R"])
+    return kernel_row(raycast, kc, model, params, scene["fovy"], 84)
 
 
-def domain_row(domain, task, raycast, kc, E=16, steps=2):
-    """One domain at E envs and 84 px: reset and `steps` random wrapper
-    steps (finite rewards and state), the env step's time and its split,
-    eager ops and device idle share, then the kernel on the posed scene
-    (render overrides applied) against the plain version, culled against
-    unculled, with its times and bound. Returns (ok, row, launches of the
-    reset and the steps)."""
+def _random_steps(domain, task, raycast, E, steps):
+    """A domain's env at E envs and 84 px: reset and `steps` random
+    wrapper steps. Returns (env, final states, obs of the reset, rewards
+    (steps, E), kernel launches of the reset and steps)."""
     import torch
 
     from sgqn_carla_tpu_torch.envs import make_env
@@ -1351,51 +928,36 @@ def domain_row(domain, task, raycast, kc, E=16, steps=2):
     venv = VectorEnv(env, E)
     g = torch.Generator(DEV).manual_seed(11)
     raycast.launches = 0
-    t0 = time.time()
     states, obs = venv.reset(g)
-    torch.cuda.synchronize()
-    reset_s = time.time() - t0
-    step_ms, rewards = [], []
+    rewards = []
     for _ in range(steps):
         a = torch.rand((E, env.action_size), generator=g, device=DEV) * 2 - 1
-        torch.cuda.synchronize()
-        t0 = time.time()
         states, res = venv.step(states, a)
-        torch.cuda.synchronize()
-        step_ms.append((time.time() - t0) * 1e3)
         rewards.append(res.reward)
-    launches = raycast.launches
-    rew = torch.stack(rewards)
+    return env, states, obs, torch.stack(rewards), raycast.launches
+
+
+def domain_row(domain, task, raycast, kc, E=16, steps=2):
+    """One domain at E envs and 84 px: reset and `steps` random wrapper
+    steps (finite rewards and state, one kernel launch per render), then
+    the kernel on the posed scene (render overrides applied) against the
+    plain version, culled against unculled, with its times and bound.
+    Returns (ok, row, launches of the reset and the steps)."""
+    import torch
+
+    env, states, obs, rew, launches = _random_steps(
+        domain, task, raycast, E, steps)
     finite = bool(torch.isfinite(rew).all()
                   and torch.isfinite(states.phys.qpos).all()
                   and torch.isfinite(states.phys.qvel).all())
-    phys = states.phys
-    physics = lambda: [env.task.step(phys, a)
-                       for _ in range(env.action_repeat)]
-    reward = lambda: [env.task.reward(phys, a)
-                      for _ in range(env.action_repeat)]
-    render = lambda: env._render_frame(states)
-    parts = {"physics": _timed_ms(physics), "rewards": _timed_ms(reward),
-             "render": _timed_ms(render)}
-    ms = statistics.median(step_ms)
-    _, busy, top = kc.profiled(lambda: env.step(states, a), 1)
-    ops = {"env_step": _count_ops(lambda: env.step(states, a)),
-           "physics": _count_ops(physics), "rewards": _count_ops(reward),
-           "render": _count_ops(render)}
-    scene = env.scene(states)
-    params = raycast._pack_params(scene["Rg"], scene["pg"], scene["app"],
-                                  scene["cam_pos"], scene["cam_R"])
-    krow = kernel_row(raycast, kc, env.task.model, params, scene["fovy"], 84)
+    krow = _posed_kernel_row(raycast, kc, env.task.model, env.scene(states))
     ok = (finite and tuple(obs.shape) == (E, 9, 84, 84)
           and launches == 1 + steps and krow["ok"])
     return ok, {
-        "ok": ok, "finite": finite, "num_envs": E, "reset_s": reset_s,
+        "ok": ok, "finite": finite, "num_envs": E,
         "substeps_per_env_step": env.task.n_sub_steps * env.action_repeat,
-        "ms_per_env_step": ms, "env_step_ms_runs": step_ms,
-        "breakdown_ms": parts, "device_busy_ms": busy,
-        "device_idle_share": _idle(busy, ms), "top_kernels_ms": top,
-        "eager_ops": ops, "kernel_launches": launches,
-        "reward_mean": float(rew.mean()), "kernel": krow}, launches
+        "kernel_launches": launches, "reward_mean": float(rew.mean()),
+        "kernel": krow}, launches
 
 
 def dmcgb_domains_phase(smi, raycast, kc):
@@ -1404,25 +966,19 @@ def dmcgb_domains_phase(smi, raycast, kc):
     Returns (ok, rows, kernel launches)."""
     from sgqn_carla_tpu_torch.physics import golden_replay
 
-    start = time.time()
     ok, rows, launches = True, {}, 0
     for domain, task in DMCGB:
-        t0 = time.time()
         good, row, n = domain_row(domain, task, raycast, kc)
-        row["phase_s"] = time.time() - t0
         ok &= good
         launches += n
         rows[f"{domain}_{task}"] = row
     goldens = {}
     for domain, task in GOLDENS:
-        t0 = time.time()
         res = golden_replay.replay(domain, task, os.path.join(
             REPO, "tests", "golden", f"{domain}_{task}.npz"), device=DEV)
-        res["seconds"] = time.time() - t0
         ok &= res["ok"]
         goldens[f"{domain}_{task}"] = res
-    emit({"phase": "dmcgb_domains", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "domains": rows,
+    emit({"phase": "dmcgb_domains", "ok": ok, "card": smi, "domains": rows,
           "golden_trajectories": goldens})
     return ok, rows, launches
 
@@ -1448,14 +1004,11 @@ def suite_domains_phase(smi, raycast, kc):
 
     from sgqn_carla_tpu_torch.physics import golden_replay
 
-    start = time.time()
     ok, rows, launches = True, {}, 0
     try:
         for domain, task in SUITE:
             torch.backends.cuda.matmul.allow_tf32 = domain in TF32_ON
-            t0 = time.time()
             good, row, n = domain_row(domain, task, raycast, kc)
-            row["phase_s"] = time.time() - t0
             row["tf32_allowed"] = domain in TF32_ON
             ok &= good
             launches += n
@@ -1463,17 +1016,14 @@ def suite_domains_phase(smi, raycast, kc):
         goldens = {}
         for domain, task in SUITE_GOLDENS:
             torch.backends.cuda.matmul.allow_tf32 = domain in TF32_ON
-            t0 = time.time()
             res = golden_replay.replay(domain, task, os.path.join(
                 REPO, "tests", "golden", f"{domain}_{task}.npz"), device=DEV)
-            res["seconds"] = time.time() - t0
             res["tf32_allowed"] = domain in TF32_ON
             ok &= res["ok"]
             goldens[f"{domain}_{task}"] = res
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    emit({"phase": "suite_domains", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "domains": rows,
+    emit({"phase": "suite_domains", "ok": ok, "card": smi, "domains": rows,
           "golden_trajectories": goldens})
     return ok, rows, launches
 
@@ -1488,109 +1038,27 @@ GRASP_GOLDENS = (("hopper", "stand"), ("manipulator", "bring_ball"),
 HOLD_STEPS = 30  # control steps of the grasp hold probe
 
 
-def stage_launches(model, phys, per_row=False):
-    """Eager ops of one implicit contact stage on `phys`; with `per_row`,
-    also those of one more velocity sweep and of one more positional
-    sweep per contact row (the stage counted again with GS_SWEEPS, then
-    POS_SWEEPS, one higher)."""
-    from sgqn_carla_tpu_torch.physics import dense
-
-    run = lambda: dense.implicit_contact_stage(
-        model, phys.qpos, phys.qvel, model.timestep, phys.solver_warm)
-    base = _count_ops(run)
-    rows = dense.warm_size(model)
-    out = {"stage_ops": base, "rows": rows}
-    for name, key in (("GS_SWEEPS", "per_row_per_velocity_sweep"),
-                      ("POS_SWEEPS", "per_row_per_positional_sweep")):
-        if not per_row:
-            break
-        old = getattr(dense, name)
-        setattr(dense, name, old + 1)
-        try:
-            out[key] = (_count_ops(run) - base) / rows
-        finally:
-            setattr(dense, name, old)
-    return out
-
-
-def grasp_row(domain, task, raycast, kc, E=16, steps=1, full_count=False):
+def grasp_row(domain, task, raycast, kc, E=16, steps=1):
     """One grasp task at E envs and 84 px: reset and `steps` random
     wrapper steps (finite state, carry and rewards; one kernel launch per
-    render); the env step's ms; its split (physics: action_repeat × one
-    control step's ms; rewards; render); one substep's wall and
-    device-busy ms and idle share (a whole env step of 40 substeps is
-    too long a trace); eager ops of a substep and of the contact stage,
-    and of a control step: n_sub substeps and n_sub − 1 per-pair maxima
-    (with `full_count` the control step is counted too, and must agree,
-    and the stage's ops per row and sweep are measured); the kernel on
-    the posed scene against the plain version. Returns (ok, row,
-    launches of the reset and steps)."""
+    render); the kernel on the posed scene against the plain version.
+    Returns (ok, row, launches of the reset and steps)."""
     import torch
 
-    from sgqn_carla_tpu_torch.envs import make_env
-    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
-    from sgqn_carla_tpu_torch.physics import engine
-
-    env = make_env(domain, task, image_size=84, episode_length=1000,
-                   device=DEV)
-    venv = VectorEnv(env, E)
-    m = env.task.model
-    g = torch.Generator(DEV).manual_seed(11)
-    raycast.launches = 0
-    t0 = time.time()
-    states, obs = venv.reset(g)
-    torch.cuda.synchronize()
-    reset_s = time.time() - t0
-    step_ms, rewards = [], []
-    for _ in range(steps):
-        a = torch.rand((E, env.action_size), generator=g, device=DEV) * 2 - 1
-        torch.cuda.synchronize()
-        t0 = time.time()
-        states, res = venv.step(states, a)
-        torch.cuda.synchronize()
-        step_ms.append((time.time() - t0) * 1e3)
-        rewards.append(res.reward)
-    launches = raycast.launches
+    env, states, obs, rew, launches = _random_steps(
+        domain, task, raycast, E, steps)
     phys = states.phys
-    rew = torch.stack(rewards)
     finite = bool(torch.isfinite(rew).all()
                   and torch.isfinite(phys.qpos).all()
                   and torch.isfinite(phys.qvel).all()
                   and torch.isfinite(phys.solver_warm).all())
-    control = lambda: env.task.step(phys, a)
-    substep = lambda: engine.step_warm(m, phys.qpos, phys.qvel, a, None,
-                                       phys.solver_warm)
-    control_ms = _timed_ms(control)
-    parts = {"physics": env.action_repeat * control_ms,
-             "rewards": _timed_ms(lambda: [env.task.reward(phys, a)
-                                           for _ in range(env.action_repeat)]),
-             "render": _timed_ms(lambda: env._render_frame(states))}
-    sub_ms = _timed_ms(substep, 3)
-    _, busy, top = kc.profiled(substep, 1)
-    n_sub = env.task.n_sub_steps
-    ops = {"substep": _count_ops(substep),
-           **stage_launches(m, phys, per_row=full_count)}
-    ops["control_step"] = n_sub * ops["substep"] + n_sub - 1
-    counted = True
-    if full_count:
-        ops["control_step_counted"] = _count_ops(control)
-        counted = ops["control_step_counted"] == ops["control_step"]
-    scene = env.scene(states)
-    params = raycast._pack_params(scene["Rg"], scene["pg"], scene["app"],
-                                  scene["cam_pos"], scene["cam_R"])
-    krow = kernel_row(raycast, kc, m, params, scene["fovy"], 84)
-    ms = statistics.median(step_ms)
-    ok = (finite and tuple(obs.shape) == (E, 9, 84, 84) and counted
+    krow = _posed_kernel_row(raycast, kc, env.task.model, env.scene(states))
+    ok = (finite and tuple(obs.shape) == (E, 9, 84, 84)
           and launches == 1 + steps and krow["ok"])
     return ok, {
-        "ok": ok, "finite": finite, "num_envs": E, "reset_s": reset_s,
-        "substeps_per_env_step": n_sub * env.action_repeat,
-        "contact_rows": ops["rows"], "ms_per_env_step": ms,
-        "env_step_ms_runs": step_ms, "control_step_ms": control_ms,
-        "breakdown_ms": parts, "substep_ms": sub_ms,
-        "substep_device_busy_ms": busy,
-        "device_idle_share": _idle(busy, sub_ms), "top_kernels_ms": top,
-        "eager_ops": ops, "kernel_launches": launches,
+        "ok": ok, "finite": finite, "num_envs": E,
+        "substeps_per_env_step": env.task.n_sub_steps * env.action_repeat,
+        "kernel_launches": launches,
         "carry_rows_pressed": int((phys.solver_warm[..., 0] > 0).sum()),
         "reward_mean": float(rew.mean()), "kernel": krow}, launches
 
@@ -1598,18 +1066,13 @@ def grasp_row(domain, task, raycast, kc, E=16, steps=1, full_count=False):
 def grasp_domains_phase(smi, raycast, kc):
     """Every grasp task (grasp_row each at 16 envs). Returns (ok, rows,
     kernel launches)."""
-    start = time.time()
     ok, rows, launches = True, {}, 0
     for domain, task in GRASP:
-        t0 = time.time()
-        good, row, n = grasp_row(domain, task, raycast, kc,
-                                 full_count=domain == "hopper")
-        row["phase_s"] = time.time() - t0
+        good, row, n = grasp_row(domain, task, raycast, kc)
         ok &= good
         launches += n
         rows[f"{domain}_{task}"] = row
-    emit({"phase": "grasp_domains", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "domains": rows})
+    emit({"phase": "grasp_domains", "ok": ok, "card": smi, "domains": rows})
     return ok, rows, launches
 
 
@@ -1625,16 +1088,13 @@ def grasp_goldens_phase(smi):
     from sgqn_carla_tpu_torch.physics import domains, engine, golden_replay
     from sgqn_carla_tpu_torch.physics.task import PhysState, with_cold_solver
 
-    start = time.time()
     ok, goldens = True, {}
     try:
         for domain, task in GRASP_GOLDENS:
             # dense-path domains with TF32 allowed: the pin must hold
             torch.backends.cuda.matmul.allow_tf32 = domain != "hopper"
-            t0 = time.time()
             res = golden_replay.replay(domain, task, os.path.join(
                 REPO, "tests", "golden", f"{domain}_{task}.npz"), device=DEV)
-            res["seconds"] = time.time() - t0
             res["tf32_allowed"] = domain != "hopper"
             ok &= res["ok"]
             goldens[f"{domain}_{task}"] = res
@@ -1653,23 +1113,21 @@ def grasp_goldens_phase(smi):
         1, len(m.contact_pairs), device=DEV)))
     ctrl = torch.zeros(1, m.nu, device=DEV)
     ctrl[0, 4] = 1.0
-    t0 = time.time()
     z = []
     for _ in range(HOLD_STEPS):
         st = t.step(st, ctrl)
         z.append(st.qpos[0, jn.index("object_z")])
     z = torch.stack(z).cpu().numpy().tolist()
-    hold_s = time.time() - t0
     pressed = int((st.solver_warm[0, :, 0] > 0).sum())
     finite = bool(torch.isfinite(st.qpos).all()
                   and torch.isfinite(st.solver_warm).all())
     hold_ok = finite and z[-1] > 0.9 and pressed > 0
     ok &= hold_ok
     emit({"phase": "grasp_goldens", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "golden_trajectories": goldens,
+          "golden_trajectories": goldens,
           "hold": {"ok": hold_ok, "control_steps": HOLD_STEPS,
                    "ball_z": z, "carry_rows_pressed": pressed,
-                   "finite": finite, "seconds": hold_s}})
+                   "finite": finite}})
     return ok
 
 
@@ -1706,8 +1164,8 @@ def carla_argv(cfg, log_dir, **kw):
 
 def restore_check(run_cfg, out, env_factory):
     """resume/S2 of a CLI run restored into fresh objects made from
-    another seed, against the run's final state: (differing leaves,
-    restore seconds, the restored tree)."""
+    another seed, against the run's final state: (differing leaves, the
+    restored tree)."""
     import torch
 
     from sgqn_carla_tpu_torch.agents import make_agent
@@ -1726,15 +1184,12 @@ def restore_check(run_cfg, out, env_factory):
     s2, o2 = VectorEnv(env, run_cfg.num_envs).reset(gen)
     like = loop.loop_state(agent.init_state(run_cfg.seed + 1), gen, replay=(
         s2, o2, buf.add_reset(buf.init(), o2)))
-    torch.cuda.synchronize()
-    t0 = time.time()
     restored = ckpt.restore(os.path.join(out["work_dir"], "resume"), S2,
                             like)
-    restore_s = time.time() - t0
     states, obs = out["env_state"]
     final = loop.loop_state(out["agent_state"], out["gen"], **out["counters"],
                             replay=(states, obs, out["replay"][1]))
-    return _differing_leaves(restored, final), restore_s, restored
+    return _differing_leaves(restored, final), restored
 
 
 def resumed_call(main_fn, argv, wd):
@@ -1792,16 +1247,13 @@ def domain_trainer_phase(cfg, smi, raycast, phase, domain, task,
     from sgqn_carla_tpu_torch.envs import make_env
     from sgqn_carla_tpu_torch.train import train as train_cli
 
-    start = time.time()
     log_dir = os.path.join(cfg.log_dir, domain)
     run_argv = lambda **k: trainer_argv(
         cfg, log_dir, domain_name=domain, task_name=task,
         eval_mode="video_hard", **kw, **k)
     argv = run_argv()
     raycast.launches = 0
-    t0 = time.time()
     out = train_cli.main(argv)
-    train_s = time.time() - t0
     launches = raycast.launches
     wd, tm, st = out["work_dir"], out["timing"], out["agent_state"]
     with open(os.path.join(wd, "train.log")) as f:
@@ -1819,8 +1271,7 @@ def domain_trainer_phase(cfg, smi, raycast, phase, domain, task,
     video_ok = (frames.shape == (EP, 448, 448, 3) and frames.dtype == np.uint8
                 and bool(frames.std() > 0))
     ev = tm["eval"]
-    differ, restore_s, restored = restore_check(parse_args(argv), out,
-                                                make_env)
+    differ, restored = restore_check(parse_args(argv), out, make_env)
     extra = check_restored(restored, out) if check_restored else {"ok": True}
     resumed, last = resumed_call(train_cli.main, run_argv(train_steps=S3),
                                  wd)
@@ -1829,28 +1280,20 @@ def domain_trainer_phase(cfg, smi, raycast, phase, domain, task,
           and all(e["launches"] > 0 for e in ev.values())
           and all(_finite(last[k]) for k in losses))
     emit({"phase": phase, "ok": ok, "card": smi,
-          "phase_s": time.time() - start,
           "config": {"domain": f"{domain}_{task}", "algorithm": "sgsac",
                      "num_envs": RECORD_E, "episode_length": 4 * EP,
                      "init_steps": S1, "train_steps": S2,
                      "eval_mode": "video_hard", "trunk": "11x32 bf16",
                      "hidden_dim": 1024, "batch_size": 128, **kw},
-          "seconds": train_s, "episodes": out["episodes"],
+          "episodes": out["episodes"],
           "losses_finite": finite, "aux_loss_nonzero_once": aux_nonzero,
           "eval_ok": eval_ok, "video_ok": video_ok,
           "resume_bit_identical": not differ, "differing_leaves": differ[:10],
-          "restored_checks": extra,
-          "restore_s": restore_s, "resume_bytes": tm["resume_bytes"],
+          "restored_checks": extra, "resume_bytes": tm["resume_bytes"],
           "resumed_to_S3": resumed, "resumed_final_row": last,
           "kernel_launches": launches,
           "eval_launches_by_mode": {m: e["launches"] for m, e in ev.items()},
-          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
           "update_graphs": tm["update_graphs"],
-          "env_steps_per_s": (tm["random_steps"] * RECORD_E
-                              / max(tm["random_s"], 1e-9)),
-          "update_chunk_ms_per_wrapper_step": (
-              1e3 * tm["update_chunk_s"] / max(tm["update_chunk_steps"], 1)),
-          "eval_s_by_mode": {m: e["s"] for m, e in ev.items()},
           "eval_log": erows,
           "episode_rewards": [r["episode_reward"] for r in rows]})
     return ok, launches
@@ -1875,7 +1318,6 @@ def distracting_dmcgb_phase(cfg, smi, raycast, kc):
     from sgqn_carla_tpu_torch.train import eval as eval_cli
     from sgqn_carla_tpu_torch.train import loop
 
-    start = time.time()
     dev = torch.device(DEV)
     ok, res, launches = True, {}, 0
     for domain, task in (("ball_in_cup", "catch"), ("reacher", "easy")):
@@ -1894,9 +1336,7 @@ def distracting_dmcgb_phase(cfg, smi, raycast, kc):
         ckpt.save(os.path.join(wd, "model"),
                   loop.weights_tree(agent.init_state(c.seed)), S2)
         raycast.launches = 0
-        t0 = time.time()
         eval_cli.main(argv)
-        s = time.time() - t0
         n = raycast.launches
         launches += n
         with open(os.path.join(wd, "eval_distracting_cs_0.1.json")) as f:
@@ -1917,11 +1357,9 @@ def distracting_dmcgb_phase(cfg, smi, raycast, kc):
             frames[f"{size}px"] = {"ok": same, **cmp}
             good &= same
         ok &= good
-        res[f"{domain}_{task}"] = {"ok": good, "seconds": s,
-                                   "episode_rewards": rw,
+        res[f"{domain}_{task}"] = {"ok": good, "episode_rewards": rw,
                                    "kernel_launches": n, "frames": frames}
-    emit({"phase": "distracting_cs_dmcgb", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, **res})
+    emit({"phase": "distracting_cs_dmcgb", "ok": ok, "card": smi, **res})
     return ok, launches
 
 
@@ -1935,91 +1373,38 @@ LEGGED_GOLDENS = (("quadruped", "walk"), ("humanoid_CMU", "stand"))
 def legged_row(domain, task, raycast, kc, E=16, steps=2):
     """One legged task at E envs and 84 px: reset and `steps` random
     wrapper steps (finite state and rewards; one kernel launch per
-    render); the env step's ms and its split (physics: action_repeat
-    control steps; rewards; the terrain pass over the kernel's output,
-    escape only; render, the pass included); eager ops of a substep, a
-    control step, the terrain pass and an env step; the device idle
-    share of an env step and the terrain pass's device-busy ms; the
-    kernel on the posed scene against the plain version. Returns (ok,
-    row, launches of the reset and steps)."""
+    render); escape's terrain pass over the kernel's output draws the
+    terrain; the kernel on the posed scene against the plain version.
+    Returns (ok, row, launches of the reset and steps)."""
     import torch
 
-    from sgqn_carla_tpu_torch.envs import make_env
-    from sgqn_carla_tpu_torch.envs.vector import VectorEnv
-    from sgqn_carla_tpu_torch.physics import engine
-
-    env = make_env(domain, task, image_size=84, episode_length=1000,
-                   device=DEV)
-    venv = VectorEnv(env, E)
+    env, states, obs, rew, launches = _random_steps(
+        domain, task, raycast, E, steps)
     m = env.task.model
-    g = torch.Generator(DEV).manual_seed(11)
-    raycast.launches = 0
-    t0 = time.time()
-    states, obs = venv.reset(g)
-    torch.cuda.synchronize()
-    reset_s = time.time() - t0
-    step_ms, rewards = [], []
-    for _ in range(steps):
-        a = torch.rand((E, env.action_size), generator=g, device=DEV) * 2 - 1
-        torch.cuda.synchronize()
-        t0 = time.time()
-        states, res = venv.step(states, a)
-        torch.cuda.synchronize()
-        step_ms.append((time.time() - t0) * 1e3)
-        rewards.append(res.reward)
-    launches = raycast.launches
     phys = states.phys
-    terrain = (phys.task_aux["terrain"] if m.hfield_geom >= 0 else None)
-    rew = torch.stack(rewards)
     finite = bool(torch.isfinite(rew).all()
                   and torch.isfinite(phys.qpos).all()
                   and torch.isfinite(phys.qvel).all())
-    physics = lambda: [env.task.step(phys, a)
-                       for _ in range(env.action_repeat)]
-    reward = lambda: [env.task.reward(phys, a)
-                      for _ in range(env.action_repeat)]
-    render = lambda: env._render_frame(states)
-    substep = lambda: engine.step(m, phys.qpos, phys.qvel, a, terrain)
-    parts = {"physics": _timed_ms(physics), "rewards": _timed_ms(reward),
-             "render": _timed_ms(render, 3)}
-    ops = {"substep": _count_ops(substep),
-           "control_step": _count_ops(lambda: env.task.step(phys, a)),
-           "env_step": _count_ops(lambda: env.step(states, a)),
-           "rewards": _count_ops(reward), "render": _count_ops(render)}
     scene = env.scene(states)
-    kargs = {k: v for k, v in scene.items()
-             if k not in ("background", "bg_mask_materials", "hfield")}
     terrain_row = None
-    if terrain is not None:
+    if m.hfield_geom >= 0:
+        kargs = {k: v for k, v in scene.items()
+                 if k not in ("background", "bg_mask_materials", "hfield")}
         kout = raycast.render_batch(**kargs, with_depth=True)
-        tpass = lambda: raycast.terrain_pass(
-            m, terrain, scene["app"], scene["cam_pos"], scene["cam_R"],
-            scene["fovy"], 84, 84, *kout)
-        parts["terrain_pass"] = _timed_ms(tpass, 3)
-        ops["terrain_pass"] = _count_ops(tpass)
-        _, t_busy, t_top = kc.profiled(tpass, 1)
-        rgb, seg, depth = tpass()
+        _, seg, _ = raycast.terrain_pass(
+            m, phys.task_aux["terrain"], scene["app"], scene["cam_pos"],
+            scene["cam_R"], scene["fovy"], 84, 84, *kout)
         drawn = float((seg == m.hfield_geom).float().mean())
-        terrain_row = {"ms": parts["terrain_pass"], "device_busy_ms": t_busy,
-                       "eager_ops": ops["terrain_pass"],
-                       "top_kernels_ms": t_top, "terrain_pixel_share": drawn,
-                       "frames": E, "size": 84}
-    ms = statistics.median(step_ms)
-    _, busy, top = kc.profiled(lambda: env.step(states, a), 1)
-    params = raycast._pack_params(kargs["Rg"], kargs["pg"], kargs["app"],
-                                  kargs["cam_pos"], kargs["cam_R"])
-    krow = kernel_row(raycast, kc, m, params, scene["fovy"], 84)
+        terrain_row = {"terrain_pixel_share": drawn, "frames": E, "size": 84}
+    krow = _posed_kernel_row(raycast, kc, m, scene)
     ok = (finite and tuple(obs.shape) == (E, 9, 84, 84)
           and launches == 1 + steps and krow["ok"]
           and (terrain_row is None or terrain_row["terrain_pixel_share"] > 0))
     return ok, {
-        "ok": ok, "finite": finite, "num_envs": E, "reset_s": reset_s,
+        "ok": ok, "finite": finite, "num_envs": E,
         "substeps_per_env_step": env.task.n_sub_steps * env.action_repeat,
         "contact_rows": len(m.contact_pairs), "nl": m.nl,
-        "ms_per_env_step": ms, "env_step_ms_runs": step_ms,
-        "breakdown_ms": parts, "device_busy_ms": busy,
-        "device_idle_share": _idle(busy, ms), "top_kernels_ms": top,
-        "eager_ops": ops, "terrain_pass": terrain_row,
+        "terrain_pass": terrain_row,
         "kernel_launches": launches, "reward_mean": float(rew.mean()),
         "kernel": krow}, launches
 
@@ -2030,22 +1415,18 @@ def legged_domains_phase(smi, raycast, kc):
     kernel launches)."""
     import torch
 
-    start = time.time()
     ok, rows, launches = True, {}, 0
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         for domain, task in LEGGED:
-            t0 = time.time()
             good, row, n = legged_row(domain, task, raycast, kc)
-            row["phase_s"] = time.time() - t0
             ok &= good
             launches += n
             rows[f"{domain}_{task}"] = row
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "legged_domains", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "tf32_allowed": True,
-          "domains": rows})
+          "tf32_allowed": True, "domains": rows})
     return ok, rows, launches
 
 
@@ -2056,13 +1437,10 @@ def legged_goldens_phase(smi):
     tenth of its bound of the CPU's."""
     from sgqn_carla_tpu_torch.physics import golden_replay
 
-    start = time.time()
     ok, goldens = True, {}
     for domain, task in LEGGED_GOLDENS:
         path = os.path.join(REPO, "tests", "golden", f"{domain}_{task}.npz")
-        t0 = time.time()
         card = golden_replay.replay(domain, task, path, device=DEV)
-        card_s = time.time() - t0
         cpu = golden_replay.replay(domain, task, path, device="cpu")
         near = all(abs(a[2] - b[2]) <= 0.1 * a[1]
                    for a, b in zip(card["horizons"], cpu["horizons"]))
@@ -2070,9 +1448,9 @@ def legged_goldens_phase(smi):
         goldens[f"{domain}_{task}"] = {
             "card": card, "cpu": cpu, "card_within_tenth_of_cpu": near,
             "card_minus_cpu": [a[2] - b[2] for a, b in zip(
-                card["horizons"], cpu["horizons"])], "card_s": card_s}
+                card["horizons"], cpu["horizons"])]}
     emit({"phase": "legged_goldens", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "golden_trajectories": goldens})
+          "golden_trajectories": goldens})
     return ok
 
 
@@ -2110,7 +1488,6 @@ def composer_domain_phase(smi, raycast, kc):
     from sgqn_carla_tpu_torch.physics import domains
     from sgqn_carla_tpu_torch.physics.task import PhysState
 
-    start = time.time()
     ok, row, launches = domain_row("composer_demo", "pendula", raycast, kc,
                                    steps=3)
     task = domains.load("composer_demo", "pendula")
@@ -2130,8 +1507,7 @@ def composer_domain_phase(smi, raycast, kc):
     row.update({"card_vs_cpu_4_control_steps": {
         "max_abs_dqpos": dq, "max_abs_dqvel": dv, "bound_qpos": 1e-5,
         "bound_qvel": 1e-4}})
-    emit({"phase": "composer_domain", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, **row})
+    emit({"phase": "composer_domain", "ok": ok, "card": smi, **row})
     return ok, row, launches
 
 
@@ -2168,13 +1544,12 @@ def mjcf_physics_phase(smi, raycast, kc):
     free-rooted model (tests/mjcf_models.py), each compiled by
     `mjcf.load_model_string`: `Physics(device="cuda").step(10)` against
     the same steps on the CPU after 10 warm-up substeps on both (within
-    1e-5, and 1e-5 relative on speeds above 1), the ms and eager ops of a substep on the card, and
-    `render(84, 84)` through the kernel (one launch) against the plain
-    version on the CPU at compare_frames' bounds. Then walker with a box
-    and with an ellipsoid torso, 16 envs pressed into the floor: 10
-    substeps under the explicit penalty on the card against the CPU
-    (qpos 1e-4, qvel 1e-3), ms and eager ops a substep. Returns (ok,
-    rows, kernel launches of the renders)."""
+    1e-5, and 1e-5 relative on speeds above 1), and `render(84, 84)`
+    through the kernel (one launch) against the plain version on the CPU
+    at compare_frames' bounds. Then walker with a box and with an
+    ellipsoid torso, 16 envs pressed into the floor: 10 substeps under
+    the explicit penalty on the card against the CPU (qpos 1e-4, qvel
+    1e-3). Returns (ok, rows, kernel launches of the renders)."""
     import numpy as np
     import torch
 
@@ -2187,30 +1562,21 @@ def mjcf_physics_phase(smi, raycast, kc):
     from sgqn_carla_tpu_torch.render.cameras import camera_pose
     from sgqn_carla_tpu_torch.render.raster import default_appearance
 
-    start = time.time()
     ok, rows, launches = True, {}, 0
     for name, xml in (("cart", CART), ("defaults", DEFAULTS),
                       ("weld", WELD)):
-        t0 = time.time()
         model = mjcf.load_model_string(xml)
-        compile_s = time.time() - t0
         sides = [Physics.from_model(model, device=d) for d in (DEV, "cpu")]
         u = np.full(model.nu, 0.5, np.float32)
         for p in sides:
             p.set_state(np.linspace(-0.1, 0.1, model.nl), np.zeros(model.nl))
             p.set_control(u)
-            p.step(10)  # the card's first substeps warm it up
-        torch.cuda.synchronize()
-        t0 = time.time()
-        sides[0].step(10)
-        torch.cuda.synchronize()
-        ms = (time.time() - t0) * 100
-        sides[1].step(10)
+            p.step(10)  # the warm-up substeps
+            p.step(10)
         dq = np.abs(sides[0].qpos - sides[1].qpos)
         dv = np.abs(sides[0].qvel - sides[1].qvel)
         bound = 1e-5 * np.maximum(1.0, np.abs(sides[1].qvel))
         agree = bool((dq <= 1e-5).all() and (dv <= bound).all())
-        ops = _count_ops(lambda: sides[0].step(1))
         raycast.launches = 0
         frame = sides[0].render(84, 84)
         torch.cuda.synchronize()
@@ -2236,8 +1602,6 @@ def mjcf_physics_phase(smi, raycast, kc):
         rows[name] = {
             "ok": row_ok, "nl": model.nl, "nu": model.nu,
             "contact_pairs": len(model.contact_pairs),
-            "compile_s": compile_s, "ms_per_substep": ms,
-            "eager_ops_per_substep": ops,
             "max_abs_dqpos": float(dq.max()), "max_abs_dqvel": float(dv.max()),
             "render_launches": n, "render_is_kernel_frame": same_frame,
             "frame_vs_plain": cmp}
@@ -2255,28 +1619,18 @@ def mjcf_physics_phase(smi, raycast, kc):
             q[:, j] = rs.uniform(*m.jnt_range[j], 16)
         qd = rs.uniform(-0.5, 0.5, (16, m.nv)).astype(np.float32)
         ctrl = rs.uniform(-1, 1, (16, m.nu)).astype(np.float32)
-        out = {}
-        for dev in (DEV, "cpu"):
-            a, b, u = (torch.as_tensor(x, device=dev) for x in (q, qd, ctrl))
-            torch.cuda.synchronize()
-            t0 = time.time()
-            o = engine.n_steps(m, a, b, u, 10)
-            torch.cuda.synchronize()
-            out[dev] = (o, (time.time() - t0) * 100)
-        (oc, ms), (oh, _) = out[DEV], out["cpu"]
+        oc, oh = (engine.n_steps(m, *(torch.as_tensor(x, device=dev)
+                                       for x in (q, qd, ctrl)), 10)
+                  for dev in (DEV, "cpu"))
         dq = float((oc.qpos.cpu() - oh.qpos).abs().max())
         dv = float((oc.qvel.cpu() - oh.qvel).abs().max())
-        a, b, u = (torch.as_tensor(x, device=DEV) for x in (q, qd, ctrl))
-        ops = _count_ops(lambda: engine.step(m, a, b, u))
         row_ok = dq <= 1e-4 and dv <= 1e-3 and bool(
             (oh.contact_force > 0).any())
         ok &= row_ok
-        rows[label] = {"ok": row_ok, "num_envs": 16, "ms_per_substep": ms,
-                       "eager_ops_per_substep": ops, "max_abs_dqpos": dq,
+        rows[label] = {"ok": row_ok, "num_envs": 16, "max_abs_dqpos": dq,
                        "max_abs_dqvel": dv, "bounds": [1e-4, 1e-3],
                        "pair_force_max": float(oh.contact_force.max())}
-    emit({"phase": "mjcf_physics", "ok": ok, "card": smi,
-          "phase_s": time.time() - start, "models": rows})
+    emit({"phase": "mjcf_physics", "ok": ok, "card": smi, "models": rows})
     return ok, rows, launches
 
 
@@ -2285,10 +1639,8 @@ def spill_trainer_phase(cfg, smi, run_training, raycast):
     --replay_spill host: episodes of 2 wrapper steps to step 12 (warm-up
     to 4), a device ring of 3 episodes (replay_device_capacity 96) behind
     a host ring of 10 (replay_capacity 320), refresh 2. Every chunk is
-    spilled, refreshes happen, the losses are finite; seconds per
-    chunk-boundary exchange and bytes each way. Returns (ok, kernel
-    launches)."""
-    start = time.time()
+    spilled, refreshes happen, the losses are finite; bytes each way.
+    Returns (ok, kernel launches)."""
     run_cfg = cfg.replace(
         episode_length=8, init_steps=4, train_steps=12, replay_spill="host",
         replay_capacity=320, replay_device_capacity=96,
@@ -2303,7 +1655,6 @@ def spill_trainer_phase(cfg, smi, run_training, raycast):
           and "critic_loss" in fm and all(_finite(v) for v in fm.values())
           and launches > 0)
     emit({"phase": "spill_trainer", "ok": ok, "card": smi,
-          "phase_s": time.time() - start,
           "update_graphs": tm["update_graphs"],
           "config": {"domain": "walker_walk", "algorithm": "sac",
                      "num_envs": run_cfg.num_envs, "episode_length": 8,
@@ -2313,7 +1664,6 @@ def spill_trainer_phase(cfg, smi, run_training, raycast):
           "host_episodes": sp.num_host_episodes if sp else None,
           "episodes_spilled": sp.n if sp else 0,
           "slots_refreshed": sp.refreshed if sp else 0,
-          "exchange_s_per_chunk": tm["spill_s"] / max(sp.n, 1) if sp else None,
           "bytes_down": sp.bytes_down if sp else 0,
           "bytes_up": sp.bytes_up if sp else 0,
           "kernel_launches": launches, "final_metrics": fm})
@@ -2350,34 +1700,23 @@ def _read_png(path: str):
 def hostio_phase(smi):
     """The host-I/O library built from native/hostio.cpp (g++) into
     build/hostio/, and 8 448-px frames (the eval recorder's) written by
-    `png_write_batch` and read back equal; its write time beside the
-    pure-Python writer's."""
+    `png_write_batch` and read back equal."""
     import numpy as np
 
-    from sgqn_carla_tpu_torch.agents.visualize import _write_png
     from sgqn_carla_tpu_torch.core import native
 
     out_dir = os.path.join(REPO, "build", "chip_smoke_logs", "hostio")
     os.makedirs(out_dir, exist_ok=True)
-    t0 = time.time()
     lib = native.build()
-    build_s = time.time() - t0
     frames = np.random.RandomState(0).randint(
         0, 256, (8, 448, 448, 3)).astype(np.uint8)
     paths = [os.path.join(out_dir, f"f{i}.png") for i in range(8)]
-    t0 = time.time()
     wrote = native.png_write_batch(frames, paths)
-    write_s = time.time() - t0
     equal = wrote and all(np.array_equal(_read_png(p), f)
                           for p, f in zip(paths, frames))
-    t0 = time.time()
-    for i, f in enumerate(frames):
-        _write_png(os.path.join(out_dir, f"py{i}.png"), f)
-    python_s = time.time() - t0
     emit({"phase": "hostio", "ok": equal, "card": smi,
-          "library": os.path.relpath(lib, REPO), "build_s": build_s,
-          "frames": [8, 448, 448, 3], "png_write_batch_s": write_s,
-          "python_writer_s": python_s, "read_back_equal": equal})
+          "library": os.path.relpath(lib, REPO),
+          "frames": [8, 448, 448, 3], "read_back_equal": equal})
     return equal
 
 
@@ -2398,13 +1737,13 @@ def _adam_rule(live, ref, lr, spare=1):
     return not bad, worst, bad
 
 
-def mesh_phase(cfg, smi, raycast, kc):
+def mesh_phase(cfg, smi):
     """Data parallelism on the card: one spawn of 2 ranks sharing cuda:0
     over gloo runs three passes at the published widths. flagship-update:
     sgsac updates (batch 128) from one host-filled 16-env ring: 1 update,
-    then 3 (and 3 more with the collectives timed), then 3 with the trunk
-    in f32; the ranks bit-identical each time; against one process the
-    Adam rule holds after 1 update and, with the f32 trunk, after 3. The 3
+    then 3, then 3 with the trunk in f32; the ranks bit-identical each
+    time; against one process the Adam rule holds after 1 update and,
+    with the f32 trunk, after 3. The 3
     bf16 updates are held to the Adam rule against the same updates on 2
     thread ranks of this process (`dryrun.thread_launch`: each computes
     its 64 rows at the spawned rank's shapes, the collectives meet at a
@@ -2422,15 +1761,10 @@ def mesh_phase(cfg, smi, raycast, kc):
     then a one-rank resume of the two-rank checkpoint to S3. Returns (ok,
     kernel launches per rank of the env and loop passes, the frames'
     largest error)."""
-    import statistics as st_
-
-    import torch
-
     from sgqn_carla_tpu_torch.envs import make_env
     from sgqn_carla_tpu_torch.parallel import dryrun, mesh as par
     from sgqn_carla_tpu_torch.train.loop import run_training
 
-    start = time.time()
     upd_cfg = cfg.replace(algorithm="sgsac", num_envs=16).finalize()
     upd_kw = {"cfg": upd_cfg, "n_updates": 3, "T": 4, "seed": 5,
               "device": DEV}
@@ -2444,23 +1778,15 @@ def mesh_phase(cfg, smi, raycast, kc):
                            eval_freq=S2, eval_episodes=4, save_freq=S1,
                            checkpoint_replay=True, mesh_data_axis=2,
                            log_dir=log_dir).finalize()
-    passes = ([("update", upd_runs["bf16_1"]),
-               ("update", {**upd_kw, "timed_updates": 3}),
-               ("update", upd_runs["f32_3"]),
-               ("env", {**env_kw, "check_frames": True, "profile": True}),
-               ("loop", {"cfg": loop_cfg, "env_factory": make_env})])
-    t0 = time.time()
+    passes = ([("update", kw) for kw in upd_runs.values()]
+              + [("env", {**env_kw, "check_frames": True}),
+                 ("loop", {"cfg": loop_cfg, "env_factory": make_env})])
     ranks = par.launch(dryrun.run_passes, [f"{DEV}:0"] * 2, (passes,),
                        timeout_s=900)
-    gloo_s = time.time() - t0
-    spawn_s = [r["start"] - t0 for r in ranks]
     (*us0, e0, l0), (*us1, e1, l1) = (r["passes"] for r in ranks)
-    u0, u1 = us0[1], us1[1]  # the 3 bf16 updates
     # the reference at the ranks' shapes: 2 thread ranks of this process
-    t3 = time.time()
     th0, th1 = (r["passes"][0] for r in dryrun.thread_launch(
         dryrun.run_passes, [f"{DEV}:0"] * 2, ([("update", upd_kw)],)))
-    thread_s = time.time() - t3
     # one process: the same updates, the unsharded env
     lr = upd_cfg.critic_lr + upd_cfg.aux_lr
     upd = {}
@@ -2477,10 +1803,7 @@ def mesh_phase(cfg, smi, raycast, kc):
             "max_loss_rel_diff": max(
                 abs(x[k] - y[k]) / max(abs(y[k]), 1e-9)
                 for x, y in zip(a["metrics"], one_run["metrics"])
-                for k in y if k.endswith("_loss")),
-            "ms_per_update_2_ranks": [st_.median(u["ms_per_update"])
-                                      for u in (a, b)],
-            "ms_per_update_1_process": st_.median(one_run["ms_per_update"])}
+                for k in y if k.endswith("_loss"))}
         if name == "bf16_3":
             one = one_run
             rules = {key: _adam_rule(a["params"][key], th0["params"][key],
@@ -2496,12 +1819,10 @@ def mesh_phase(cfg, smi, raycast, kc):
                 "max_loss_rel_diff": max(
                     abs(x[k] - y[k]) / max(abs(y[k]), 1e-9)
                     for x, y in zip(a["metrics"], th0["metrics"])
-                    for k in y if k.endswith("_loss")),
-                "seconds": thread_s}
-    t1 = time.time()  # one spawned rank
+                    for k in y if k.endswith("_loss"))}
+    # one spawned rank
     nccl = par.launch(dryrun.run_passes, [f"{DEV}:0"], (
         [("update", upd_kw)],), timeout_s=600)[0]["passes"][0]
-    nccl_s = time.time() - t1
     ok_nccl, n_max, _ = _adam_rule(nccl["params"]["params"],
                                    one["params"]["params"], 3 * lr)
     full = dryrun.env_pass(None, **env_kw)
@@ -2511,19 +1832,14 @@ def mesh_phase(cfg, smi, raycast, kc):
         slices.append(max(float((e[k] - full[k][lo:hi]).abs().max())
                           for k in ("qpos", "qvel")))
     frames = [e["frames_vs_plain"] for e in (e0, e1)]
-    ms_rank = [e["ms_per_env_step"] for e in (e0, e1)]
-    agg = 16 / (max(ms_rank) / 1e3)
-    one_rank = 16 / (full["ms_per_env_step"] / 1e3)
     # the loop: logs once, replicas equal, a one-rank resume
     wd = l0["work_dir"]
     with open(os.path.join(wd, "train.log")) as f:
         rows = [json.loads(line) for line in f]
     with open(os.path.join(wd, "eval.log")) as f:
         erows = [json.loads(line) for line in f]
-    t2 = time.time()
     res = run_training(loop_cfg.replace(mesh_data_axis=1, train_steps=S3,
                                         resume=True))
-    resume_s = time.time() - t2
     ok = (all(u["ranks_identical"] for u in upd.values())
           and upd["bf16_1"]["adam_rule_vs_one_process"]
           and upd["f32_3"]["adam_rule_vs_one_process"]
@@ -2540,46 +1856,29 @@ def mesh_phase(cfg, smi, raycast, kc):
           and all(_finite(v) for v in l0["final_metrics"].values())
           and res["resumed_at"] == S2
           and all(_finite(v) for v in res["final_metrics"].values()))
-    coll = u0["collectives_per_update"]
-    timed = u0["collectives_timed"]
+    coll = us0[1]["collectives_per_update"]  # the 3 bf16 updates
     launches = {"mesh_env": [e0["kernel_launches"], e1["kernel_launches"]],
                 "mesh_loop": [l0["launches"], l1["launches"]]}
     emit({"phase": "mesh", "ok": ok, "card": smi, "backend": "gloo",
-          "devices": [f"{DEV}:0"] * 2, "spawn_s": spawn_s,
-          "gloo_call_s": gloo_s, "nccl_call_s": nccl_s,
-          "pass_s": [[p["seconds"] for p in r["passes"]] for r in ranks],
+          "devices": [f"{DEV}:0"] * 2,
           "flagship_update": {
               **upd,
               "collective_calls_per_update": coll["calls"],
               "collective_bytes_per_update": coll["bytes"],
-              "collective_ms_per_update": 1e3 * timed["seconds"],
               "nccl_world_1": {"adam_rule_vs_one_process": ok_nccl,
                                "max_weight_diff": n_max,
                                "identical_to_one_process":
-                                   nccl["digest"] == one["digest"],
-                               "ms_per_update":
-                                   st_.median(nccl["ms_per_update"])}},
+                                   nccl["digest"] == one["digest"]}},
           "flagship_env": {
               "frames_vs_plain": frames, "state_vs_unsharded": slices,
-              "ms_per_env_step_per_rank": ms_rank,
-              "ms_per_env_step_one_rank_16": full["ms_per_env_step"],
-              "env_steps_per_s_2_ranks": agg,
-              "env_steps_per_s_one_rank_16": one_rank,
-              "device_busy_ms_per_rank": [e.get("device_busy_ms")
-                                          for e in (e0, e1)],
-              "device_idle_share_per_rank": [
-                  _idle(e.get("device_busy_ms"), e["ms_per_env_step"])
-                  for e in (e0, e1)],
               "kernel_launches_per_rank": launches["mesh_env"]},
           "loop": {"ranks_identical": l0["digest"] == l1["digest"],
                    "logged_steps": [r["step"] for r in rows],
-                   "eval_rows": len(erows), "seconds": l0["seconds"],
+                   "eval_rows": len(erows),
                    "kernel_launches_per_rank": launches["mesh_loop"],
                    "collectives_per_rank": [l0["collectives"],
                                             l1["collectives"]],
-                   "one_rank_resume_at": res["resumed_at"],
-                   "resume_s": resume_s},
-          "phase_s": time.time() - start})
+                   "one_rank_resume_at": res["resumed_at"]}})
     return ok, launches, max(f["max_abs_err"] for f in frames)
 
 
@@ -2609,16 +1908,15 @@ def main():
           "cuda": torch.version.cuda, "kind": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count()})
 
-    # ---- 2. build
-    t0 = time.time()
+    # ---- build
     lib = raycast.build()
     raycast._lib()
-    emit({"phase": "build", "seconds": time.time() - t0,
+    emit({"phase": "build",
           "library": os.path.relpath(lib, REPO),
           "culled": raycast.kernel_attributes(True),
           "unculled": raycast.kernel_attributes(False)})
 
-    # ---- 3. kernel: culled vs unculled vs plain version
+    # ---- kernel: culled vs unculled vs plain version
     ok_k, rows, inside = kernel_phase(raycast, kc)
     emit({"phase": "kernel", "ok": ok_k, "card": smi, "rows": rows,
           "camera_inside_sphere": inside,
@@ -2627,7 +1925,7 @@ def main():
     if not ok_k:
         return 1
 
-    # ---- 4. env
+    # ---- env
     E = 16
     env = make_env("walker", "walk", image_size=84, episode_length=1000,
                    device="cuda")
@@ -2635,50 +1933,25 @@ def main():
     g = torch.Generator("cuda").manual_seed(1)
     before = raycast.launches
     states, obs = venv.reset(g)
-    step_s, rewards = [], []
+    rewards = []
     n_steps = 3
     for _ in range(n_steps):
         a = torch.rand((E, venv.action_size), generator=g, device="cuda") * 2 - 1
-        torch.cuda.synchronize()
-        t0 = time.time()
         states, res = venv.step(states, a)
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t0)
         rewards.append(res.reward)
     obs = res.obs
     renders = raycast.launches - before
-    # where an env step's time goes: physics (action_repeat control steps
-    # of 10 substeps), rewards, the render; then the device-busy share
-    parts = {}
-    for name, fn in (
-            ("physics", lambda: [env.task.step(states.phys, a)
-                                 for _ in range(env.action_repeat)]),
-            ("rewards", lambda: [env.task.reward(states.phys, a)
-                                 for _ in range(env.action_repeat)]),
-            ("render", lambda: env._render_frame(states))):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        parts[name] = (time.time() - t0) * 1e3
-    wall, busy, top = kc.profiled(lambda: venv.step(states, a), 1)
     rew = torch.stack(rewards)
     ok_env = (tuple(obs.shape) == (E, 9, 84, 84) and obs.dtype == torch.uint8
               and obs.is_cuda and bool(torch.isfinite(rew).all())
               and renders == 1 + n_steps)
     emit({"phase": "env", "ok": ok_env, "card": smi, "num_envs": E,
           "obs_shape": list(obs.shape), "kernel_launches": renders,
-          "frames_rendered": renders * E,
-          "ms_per_env_step": 1e3 * statistics.median(step_s),
-          "physics_ms_per_env_step": parts["physics"],
-          "breakdown_ms": parts, "profiled_step_ms": wall,
-          "device_busy_ms": busy,
-          "device_idle_share": _idle(busy, 1e3 * statistics.median(step_s)),
-          "top_kernels_ms": top, "reward_mean": float(rew.mean())})
+          "frames_rendered": renders * E, "reward_mean": float(rew.mean())})
     if not ok_env:
         return 1
 
-    # ---- 5. trainer at the default widths. The work dir starts empty: a
+    # ---- trainer at the default widths. The work dir starts empty: a
     # previous run's checkpoints must not be resumed in place of this one's
     log_dir = os.path.join(REPO, "build", "chip_smoke_logs")
     shutil.rmtree(log_dir, ignore_errors=True)
@@ -2690,12 +1963,9 @@ def main():
                  init_steps=S1, train_steps=S2, save_freq=10_000,
                  log_dir=log_dir, seed=0, device="cuda").finalize()
     raycast.launches = 0
-    t0 = time.time()
     out = run_training(cfg)
-    train_s = time.time() - t0
     main_launches = raycast.launches
     fm = out["final_metrics"]
-    tm = out["timing"]
     log = os.path.join(out["work_dir"], "train.log")
     st = out["agent_state"]
     on_cuda = all(p.is_cuda for mod in (st.params, st.target_params)
@@ -2709,55 +1979,32 @@ def main():
               "projection_dim", "batch_size", "image_size", "frame_stack",
               "action_repeat", "precision", "num_envs", "episode_length",
               "init_steps", "train_steps")},
-          "seconds": train_s, "episodes": out["episodes"],
+          "episodes": out["episodes"],
           "kernel_launches": main_launches, "params_on_cuda": on_cuda,
-          "updates_per_s": tm["catch_up_updates"] / max(tm["catch_up_s"], 1e-9),
-          "update_graphs": tm["update_graphs"],
-          "env_steps_per_s": (tm["random_steps"] * E
-                              / max(tm["random_s"], 1e-9)),
-          "update_chunk_s": tm["update_chunk_s"],
+          "update_graphs": out["timing"]["update_graphs"],
           "final_metrics": fm})
     if not ok_tr:
         return 1
-    # where an update's time goes (trained state, filled ring)
-    buf, rst = out["replay"]
-    upd = lambda: out["agent"].update(st, rst, buf)
-    g0 = _to_replays(upd, out["agent"])
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(10):
-        upd()
-    torch.cuda.synchronize()
-    ms_upd = (time.time() - t0) * 100
-    timed = _graph_delta(g0, out["agent"])
-    wall, busy, top = kc.profiled(upd, 5)
-    emit({"phase": "update_profile", "card": smi, "batch_size": 128,
-          "ms_per_update": ms_upd, "profiled_ms_per_update": wall,
-          "device_busy_ms": busy, "device_idle_share": _idle(busy, ms_upd),
-          "top_kernels_ms": top, "graphs_before": g0,
-          "graphs_timed": timed})
 
-    # ---- 6. the flagship sgsac trainer (eval, video, checkpoints), the
-    # resume from its checkpoint, then its update profile
+    # ---- the flagship sgsac trainer (eval, video, checkpoints), the
+    # resume from its checkpoint
     ok_sg, sg_out, sg_launches, eval_launches = sgsac_trainer_phase(
         cfg, smi, run_training, raycast)
     if not ok_sg:
         return 1
     if not resume_phase(cfg, sg_out, smi, run_training):
         return 1
-    if not sgsac_profile_phase(cfg, sg_out, smi, kc):
-        return 1
 
-    # ---- 7. offline eval, the composited eval frames
+    # ---- offline eval, the composited eval frames
     ok_off, offline_launches = offline_eval_phase(cfg, smi, raycast)
     if not ok_off:
         return 1
     if not eval_render_phase(cfg, smi, raycast, kc):
         return 1
 
-    # ---- 8. every variant's update, PAD's trainer (guard, profiler) and
-    # its offline eval with test-time adaptation
-    ok_alg, alg_launches = algorithms_phase(cfg, smi, raycast, kc)
+    # ---- every variant's update, PAD's trainer (guard, profiler) and its
+    # offline eval with test-time adaptation
+    ok_alg, alg_launches = algorithms_phase(cfg, smi, raycast)
     if not ok_alg:
         return 1
     ok_pad, pad_cfg, pad_launches = pad_trainer_phase(cfg, smi, run_training,
@@ -2768,9 +2015,9 @@ def main():
     if not ok_pe:
         return 1
 
-    # ---- 9. the CARLA twin (train_carla, its frames on the card against
-    # the CPU's), the external-data readers through the offline eval
-    if not carla_trainer_phase(cfg, smi, kc):
+    # ---- the CARLA twin (train_carla, its frames on the card against the
+    # CPU's), the external-data readers through the offline eval
+    if not carla_trainer_phase(cfg, smi):
         return 1
     if not carla_render_phase(smi, kc):
         return 1
@@ -2778,7 +2025,7 @@ def main():
     if not ok_ext:
         return 1
 
-    # ---- 10. the DMCGB domains: env, kernel and golden trajectories on
+    # ---- the DMCGB domains: env, kernel and golden trajectories on
     # each, SGQN on cartpole, distracting_cs on ball_in_cup and reacher
     ok_dm, dm_rows, dm_launches = dmcgb_domains_phase(smi, raycast, kc)
     if not ok_dm:
@@ -2790,7 +2037,7 @@ def main():
     if not ok_dd:
         return 1
 
-    # ---- 11. the suite domains (dense path, fluid, free roots): env,
+    # ---- the suite domains (dense path, fluid, free roots): env,
     # kernel and golden trajectories on each, SGQN on humanoid walk
     ok_su, su_rows, su_launches = suite_domains_phase(smi, raycast, kc)
     if not ok_su:
@@ -2799,7 +2046,7 @@ def main():
     if not ok_hu:
         return 1
 
-    # ---- 12. the grasp domains (the implicit contact solver): env,
+    # ---- the grasp domains (the implicit contact solver): env,
     # launches and kernel on each, the goldens and the hold probe, SGQN
     # on hopper stand
     ok_gr, gr_rows, gr_launches = grasp_domains_phase(smi, raycast, kc)
@@ -2811,7 +2058,7 @@ def main():
     if not ok_ho:
         return 1
 
-    # ---- 13. quadruped (the terrain) and humanoid_CMU: env, launches and
+    # ---- quadruped (the terrain) and humanoid_CMU: env, launches and
     # kernel on each, the goldens on the card and the CPU, SGQN on escape
     ok_lg, lg_rows, lg_launches = legged_domains_phase(smi, raycast, kc)
     if not ok_lg:
@@ -2822,7 +2069,7 @@ def main():
     if not ok_es:
         return 1
 
-    # ---- 14. composer_demo, the MJCF compiler and `Physics`, host spill,
+    # ---- composer_demo, the MJCF compiler and `Physics`, host spill,
     # host I/O
     ok_co, co_row, co_launches = composer_domain_phase(smi, raycast, kc)
     if not ok_co:
@@ -2839,13 +2086,13 @@ def main():
     if not hostio_phase(smi):
         return 1
 
-    # ---- 15. data parallelism: 2 ranks sharing the card over gloo, one
-    # rank over NCCL
-    ok_me, me_launches, me_err = mesh_phase(cfg, smi, raycast, kc)
+    # ---- data parallelism: 2 ranks sharing the card over gloo, one rank
+    # over NCCL
+    ok_me, me_launches, me_err = mesh_phase(cfg, smi)
     if not ok_me:
         return 1
 
-    # ---- 16. kernels line, card line, result
+    # ---- kernels line, card line, result
     main_row = rows[0]  # E = 16 at 84×84: the training path's shape
     emit({"kernels": [{
         "name": "raycast", "route": "cuda",

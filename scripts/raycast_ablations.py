@@ -5,8 +5,8 @@
 
 Builds variants of sgqn_carla_tpu_torch/csrc/raycast.cu, each made from the
 source by one text substitution, with the kernel's own nvcc flags, and
-times them beside the kernel on walker scenes (the profiler's device time
-per call, 20 calls):
+times them beside the kernel on walker scenes (device time per call: 20
+calls queued behind a spin kernel, `kernel_checks.queued_ms`):
 
   kernel            the source as it is
   library_math      sqrtf, __fdiv_rn and __frcp_rn (the CUDA library's IEEE
@@ -138,7 +138,7 @@ def main():
                     row[f"identical_E{E}_{size}_{int(cull)}"] = kc.same_bits(
                         run(), launch(libs["kernel"], params[E], size, cull))
                 row[f"device_ms_E{E}_{size}_{'culled' if cull else 'unculled'}"] = \
-                    kc.profiled(run, 20)[1]
+                    kc.queued_ms(run)
         res[name] = row
     ok = all(v for r in res.values() if isinstance(r, dict)
              for k, v in r.items() if k.startswith("identical"))

@@ -117,11 +117,6 @@ def _ok(mesh: Optional[Mesh], msg: str):
         print(f"dryrun OK on {world} ranks [{msg}]", flush=True)
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _device(mesh: Optional[Mesh], device) -> torch.device:
     return torch.device(device) if mesh is None else mesh.device
 
@@ -186,18 +181,17 @@ def gather_pass(mesh: Optional[Mesh], cfg, seed: int = 0,
 def update_pass(mesh: Optional[Mesh], cfg, n_updates: int = 2,
                 seed: int = 0, action_size: int = 6, T: int = 4,
                 device="cpu", draws: Optional[List[Dict]] = None,
-                jax_trees: Optional[Dict] = None, timed_updates: int = 0,
-                keep_params: bool = True, ring=None) -> Dict:
+                jax_trees: Optional[Dict] = None, keep_params: bool = True,
+                ring=None) -> Dict:
     """`n_updates` updates of cfg's algorithm on a host-filled ring, or on
     `ring` (a one-device replay state), the ring's env axis sharded over
     the mesh and the agent replicated. `draws`
     (one dict of numpy arrays per update, global shapes) and `jax_trees`
     ({"params", "target_params", "aux_params"}: JAX trees of numpy
-    arrays) inject the JAX update's draws and weights. Then
-    `timed_updates` more with the collectives timed. Returns each
-    update's metrics, ms per update, the collectives' calls and bytes per
-    update (and their ms in the timed updates), the agent state's digest
-    and, with `keep_params`, the weights on the CPU."""
+    arrays) inject the JAX update's draws and weights. Returns each
+    update's metrics, the collectives' calls and bytes per update, the
+    agent state's digest and, with `keep_params`, the weights on the
+    CPU."""
     from sgqn_carla_tpu_torch.agents import make_agent
     from sgqn_carla_tpu_torch.agents.convert import load_jax_params
 
@@ -212,7 +206,7 @@ def update_pass(mesh: Optional[Mesh], cfg, n_updates: int = 2,
         load_jax_params(getattr(st, key), tree,
                         cfg.algorithm if key == "aux_params" else "sac")
     st = put_replicated(st, mesh)
-    metrics, ms = [], []
+    metrics = []
     stats0 = dict(mesh.stats) if mesh is not None else None
     for i in range(n_updates):
         d = None
@@ -221,14 +215,9 @@ def update_pass(mesh: Optional[Mesh], cfg, n_updates: int = 2,
                      if isinstance(v, (tuple, list))
                      else torch.as_tensor(v, device=dev))
                  for k, v in draws[i].items()}
-        _sync(dev)
-        t0 = time.perf_counter()
         st, m = agent.update(st, rstate, buf, d)
-        _sync(dev)
-        ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
-    out = {"metrics": metrics, "ms_per_update": ms,
-           "digest": digest(st)}
+    out = {"metrics": metrics, "digest": digest(st)}
     if keep_params:
         out["params"] = {
             name: {mod: {k: v.detach().cpu().clone()
@@ -242,30 +231,20 @@ def update_pass(mesh: Optional[Mesh], cfg, n_updates: int = 2,
         out["collectives_per_update"] = {
             k: (mesh.stats[k] - stats0[k]) / max(n_updates, 1)
             for k in ("calls", "bytes")}
-        if timed_updates:
-            mesh.timed = True
-            before = dict(mesh.stats)
-            for _ in range(timed_updates):
-                st, _ = agent.update(st, rstate, buf)
-            mesh.timed = False
-            out["collectives_timed"] = {
-                k: (mesh.stats[k] - before[k]) / timed_updates
-                for k in ("calls", "bytes", "seconds")}
     return out
 
 
 def env_pass(mesh: Optional[Mesh], domain: str = "walker",
              task: str = "walk", num_envs: int = 2, steps: int = 8,
              episode_length: int = 32, seed: int = 1, device="cpu",
-             check_frames: bool = False, profile: bool = False) -> Dict:
+             check_frames: bool = False) -> Dict:
     """One sharded episode of `steps` wrapper steps: every rank draws the
     global episode starts and actions from equal generators and keeps its
     rows, resets and steps its envs, and adds to its slice of a ring.
     Returns the rank's final physics state and obs on the CPU, the mean
-    reward, ms per env step, the ring's completed episodes, the kernel's
-    launches in the reset and steps; with `check_frames`, the kernel's
-    frames of the final state against the plain version
-    (`compare_frames`); with `profile`, the device-busy ms of one step."""
+    reward, the ring's completed episodes, the kernel's launches in the
+    reset and steps; with `check_frames`, the kernel's frames of the
+    final state against the plain version (`compare_frames`)."""
     from sgqn_carla_tpu_torch.data.replay import ReplayBuffer
     from sgqn_carla_tpu_torch.envs import make_env
     from sgqn_carla_tpu_torch.envs.vector import VectorEnv
@@ -287,22 +266,16 @@ def env_pass(mesh: Optional[Mesh], domain: str = "walker",
     before = raycast.launches
     states, obs = venv.reset(None, phys=phys)
     rstate = buf.add_reset(buf.init(), obs)
-    if mesh is not None:  # start the ranks' clocks together
-        mesh.reduce([torch.zeros((), device=dev)])
-    _sync(dev)
-    t0 = time.perf_counter()
     total = torch.zeros(hi - lo, device=dev)
     for a in acts[:, lo:hi]:
         states, res = venv.step(states, a)
         rstate = buf.add(rstate, a, res.reward, res.obs)
         total = total + res.reward
-    _sync(dev)
-    ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
     out = {"qpos": states.phys.qpos.cpu(), "qvel": states.phys.qvel.cpu(),
            "obs": res.obs.cpu(), "reward_mean": float(total.mean()),
            "finite": bool(torch.isfinite(total).all()
                           and torch.isfinite(states.phys.qpos).all()),
-           "ms_per_env_step": ms, "num_eps": rstate.num_eps,
+           "num_eps": rstate.num_eps,
            "kernel_launches": raycast.launches - before,
            "envs": [lo, hi]}
     if check_frames:
@@ -311,11 +284,6 @@ def env_pass(mesh: Optional[Mesh], domain: str = "walker",
         k, r = kc.composited_pair(env, states)
         ok, worst = kc.compare_frames(k, r)
         out["frames_vs_plain"] = {"ok": ok, **worst}
-    if profile and dev.type == "cuda":
-        from sgqn_carla_tpu_torch.render import kernel_checks as kc
-
-        _, busy, _ = kc.profiled(lambda: env.step(states, acts[0, lo:hi]), 1)
-        out["device_busy_ms"] = busy
     return out
 
 
@@ -394,8 +362,7 @@ def flagship_update_pass(mesh: Optional[Mesh], device="cpu",
         _ok(mesh, f"sgsac/walker flagship-update; "
                   f"critic_loss={m['critic_loss']:.4f}, "
                   f"aux_loss={m['aux_loss']:.4f}")
-    return {"ok": ok, **{k: out[k] for k in ("metrics", "ms_per_update",
-                                             "digest")}}
+    return {"ok": ok, **{k: out[k] for k in ("metrics", "digest")}}
 
 
 def flagship_env_pass(mesh: Optional[Mesh], device="cpu") -> Dict:
@@ -408,8 +375,7 @@ def flagship_env_pass(mesh: Optional[Mesh], device="cpu") -> Dict:
     if ok:
         _ok(mesh, f"walker flagship-env episode; "
                   f"mean_reward={out['reward_mean']:.4f}")
-    return {"ok": ok, **{k: out[k] for k in ("reward_mean", "num_eps",
-                                             "ms_per_env_step")}}
+    return {"ok": ok, **{k: out[k] for k in ("reward_mean", "num_eps")}}
 
 
 PASSES = {"tiny": tiny_pass, "flagship-update": flagship_update_pass,
@@ -419,16 +385,15 @@ PASSES = {"tiny": tiny_pass, "flagship-update": flagship_update_pass,
 
 def run_passes(mesh: Mesh, passes: Sequence[Tuple[str, Dict]]) -> Dict:
     """Run the named passes in order on this rank (one spawn for all):
-    {"start": this rank's start time, "passes": the results in order},
-    each with its seconds and the ray-cast kernel's launches in this
-    process. A pass whose result says `ok: False` raises,
-    which stops every rank."""
+    {"passes": the results in order}, each with the ray-cast kernel's
+    launches in this process. A pass whose result says `ok: False`
+    raises, which stops every rank."""
     from sgqn_carla_tpu_torch.render import raycast
 
-    out = {"start": time.time(), "passes": []}
+    out = {"passes": []}
     for name, kw in passes:
-        t0, before = time.time(), raycast.launches
-        mesh.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        before = raycast.launches
+        mesh.stats = {"calls": 0, "bytes": 0}
         if name == "loop":
             from sgqn_carla_tpu_torch.train.loop import _train_rank
 
@@ -436,7 +401,6 @@ def run_passes(mesh: Mesh, passes: Sequence[Tuple[str, Dict]]) -> Dict:
         else:
             res = PASSES[name](mesh, **kw)
         if isinstance(res, dict):
-            res["seconds"] = time.time() - t0
             res["launches"] = raycast.launches - before  # checks included
             if res.get("ok") is False:
                 raise RuntimeError(f"dryrun pass {name} failed on rank "

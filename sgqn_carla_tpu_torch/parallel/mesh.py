@@ -194,16 +194,14 @@ def _seed_mix(seed: int, rank: int) -> int:
 class Mesh:
     """One rank's view of the data-parallel mesh: the world size, this
     rank, its device and the backend. `stats` counts the collectives:
-    calls, bytes reduced or broadcast, and with `timed` on the seconds
-    they took (the device is synchronised around each one then)."""
+    calls, and bytes reduced or broadcast."""
 
     world: int
     rank: int
     device: torch.device
     backend: str
-    timed: bool = False
     stats: dict = dataclasses.field(default_factory=lambda: {
-        "calls": 0, "bytes": 0, "seconds": 0.0})
+        "calls": 0, "bytes": 0})
 
     @property
     def is_main(self) -> bool:
@@ -219,19 +217,8 @@ class Mesh:
         return x[self.rank * n:(self.rank + 1) * n]
 
     # ---------------------------------------------------------- collectives
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _run(self, op, buf: torch.Tensor):
-        t0 = None
-        if self.timed:
-            self._sync()
-            t0 = time.perf_counter()
         op(buf)
-        if self.timed:
-            self._sync()
-            self.stats["seconds"] += time.perf_counter() - t0
         self.stats["calls"] += 1
         self.stats["bytes"] += buf.numel() * buf.element_size()
 

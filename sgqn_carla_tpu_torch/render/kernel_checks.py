@@ -17,16 +17,13 @@ render tests; nothing on the render path imports this module.
   composited_pair   an env's frames (video background composited) through
                     the kernel and through the plain version
   same_bits         two kernel outputs agree bit for bit
-  cuda_ms, queued_ms, profiled
+  cuda_ms, queued_ms
                     CUDA-event times of a call (the host's launch time
                     included; queued behind a spin kernel: the device's
-                    alone, a kernel's device time) and the profiler's
-                    device-busy time of a stretch of work
+                    alone, a kernel's device time)
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -245,33 +242,3 @@ def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def profiled(fn, n: int):
-    """Run fn() n times under torch.profiler: (wall ms per call with the
-    profiler on, device-busy ms per call, top CUDA kernels by total ms).
-    Busy time is the sum of the CUDA kernel intervals (one stream: they do
-    not overlap); set it against a wall time taken with the profiler off,
-    since tracing slows the host. Late in a long process the card's
-    traces have come back without CUDA events: then the busy time is None
-    (not measured), never 0. A kernel's own device time comes
-    from `queued_ms`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) * 1e3 / n
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values()) / n if by_name else None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy, [(k[:60], v / n) for k, v in top]

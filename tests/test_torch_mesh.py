@@ -108,7 +108,7 @@ def results():
                        timeout_s=300)
     one = [dryrun.update_pass(None, **kw) for _, kw in passes[1:-1]]
     threads = dryrun.thread_launch(dryrun.update_pass, ["cpu", "cpu"], (
-        _cfg("sgsac"), 2, 0, A, T, "cpu", None, None, 0, True, rings[84]))
+        _cfg("sgsac"), 2, 0, A, T, "cpu", None, None, True, rings[84]))
     return {"ranks": [r["passes"] for r in ranks], "one": one,
             "jax": (jnew, jm), "threads": threads}
 
